@@ -1,0 +1,141 @@
+"""Weights into the port: JAX-package variables and reference `.pth` files.
+
+`state_dict_from_jax` maps the JAX package's `{"params", "batch_stats"}`
+trees (as numpy arrays) onto the port's state dict, which uses the
+reference torch names and layouts (conv HWIO→OIHW, linear
+[in,out]→[out,in], BatchNorm running stats). It keeps its own copy of the
+naming the JAX package's `ckpt/torch_export.py` encodes, so the port
+imports nothing of that package.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from automoe_tpu_torch.configs import load_model_config
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))  # a contiguous, writable copy
+
+
+class _Sink:
+    def __init__(self):
+        self.out: Dict[str, torch.Tensor] = {}
+
+    def conv(self, name: str, tree: Dict[str, Any]):
+        self.out[f"{name}.weight"] = _t(np.asarray(tree["kernel"]).transpose(3, 2, 0, 1))
+        if "bias" in tree:
+            self.out[f"{name}.bias"] = _t(tree["bias"])
+
+    def linear(self, name: str, tree: Dict[str, Any]):
+        self.out[f"{name}.weight"] = _t(np.asarray(tree["kernel"]).T)
+        if "bias" in tree:
+            self.out[f"{name}.bias"] = _t(tree["bias"])
+
+    def norm(self, name: str, params: Dict, stats: Dict | None = None):
+        self.out[f"{name}.weight"] = _t(params["scale"])
+        self.out[f"{name}.bias"] = _t(params["bias"])
+        if stats:
+            self.out[f"{name}.running_mean"] = _t(stats["mean"])
+            self.out[f"{name}.running_var"] = _t(stats["var"])
+            self.out[f"{name}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _resnet(sink: _Sink, prefix: str, p: Dict, s: Dict):
+    """ResNet18Backbone tree → `{prefix}0..7` (Sequential children)."""
+    sink.conv(f"{prefix}0", p["conv1"])
+    sink.norm(f"{prefix}1", p["bn1"], s.get("bn1"))
+    for idx, stage in ((4, 1), (5, 2), (6, 3), (7, 4)):
+        for blk in (0, 1):
+            bp = p[f"layer{stage}_{blk}"]
+            bs = s.get(f"layer{stage}_{blk}", {})
+            base = f"{prefix}{idx}.{blk}"
+            sink.conv(f"{base}.conv1", bp["conv1"])
+            sink.norm(f"{base}.bn1", bp["bn1"], bs.get("bn1"))
+            sink.conv(f"{base}.conv2", bp["conv2"])
+            sink.norm(f"{base}.bn2", bp["bn2"], bs.get("bn2"))
+            if "downsample_conv" in bp:
+                sink.conv(f"{base}.downsample.0", bp["downsample_conv"])
+                sink.norm(f"{base}.downsample.1", bp["downsample_bn"],
+                          bs.get("downsample_bn"))
+
+
+def _expert(sink: _Sink, expert_type: str, prefix: str, p: Dict, s: Dict):
+    if expert_type in ("detection", "segmentation", "drivable"):
+        _resnet(sink, f"{prefix}backbone.", p["backbone"], s.get("backbone", {}))
+        head = "head" if expert_type == "detection" else "decoder"
+        sink.conv(f"{prefix}{head}.0", p[head]["conv1"])
+        sink.conv(f"{prefix}{head}.2", p[head]["conv2"])
+    elif expert_type == "nuscenes":
+        _resnet(sink, f"{prefix}image_backbone.", p["image_backbone"],
+                s.get("image_backbone", {}))
+        sink.linear(f"{prefix}image_projection", p["image_projection"])
+        sink.out[f"{prefix}query_embed.weight"] = _t(p["query_embed"])
+        sink.linear(f"{prefix}decoder.0", p["decoder_fc1"])
+        sink.linear(f"{prefix}decoder.3", p["decoder_fc2"])
+        sink.linear(f"{prefix}class_head", p["class_head"])
+        sink.linear(f"{prefix}bbox_head", p["bbox_head"])
+    else:
+        raise ValueError(expert_type)
+
+
+def state_dict_from_jax(variables_np: Dict[str, Any], config) -> Dict[str, torch.Tensor]:
+    """JAX AutoMoE variables (numpy leaves) → the port's state dict."""
+    cfg = load_model_config(config)
+    sink = _Sink()
+    params = variables_np["params"]
+    stats = variables_np.get("batch_stats", {})
+
+    for i, ecfg in enumerate(cfg.experts):
+        _expert(sink, ecfg.type, f"experts.{i}.", params[f"expert_{i}"],
+                stats.get(f"expert_{i}", {}))
+        head = params[f"extractor_{i}"]["head"]
+        a, b, c = (0, 3, 4) if ecfg.type == "nuscenes" else (2, 5, 6)
+        base = f"expert_extractors.extractors.{i}.feature_extractor."
+        sink.linear(f"{base}{a}", head["fc1"])
+        sink.linear(f"{base}{b}", head["fc2"])
+        sink.norm(f"{base}{c}", head["ln"])
+
+    cp = params["context_extractor"]
+    seq = "encoder" if cfg.context.type == "simple" else "context_encoder"
+    sink.linear(f"context_extractor.{seq}.0", cp["fc1"])
+    sink.linear(f"context_extractor.{seq}.3", cp["fc2"])
+    sink.norm(f"context_extractor.{seq}.4", cp["ln"])
+
+    gp = params["gating_network"]
+    sink.linear("gating_network.context_encoder.context_encoder.0",
+                gp["context_encoder"]["fc1"])
+    sink.linear("gating_network.context_encoder.context_encoder.3",
+                gp["context_encoder"]["fc2"])
+    for i in range(len(cfg.experts)):
+        pp = gp[f"expert_processor_{i}"]
+        base = f"gating_network.expert_processors.{i}.processor"
+        sink.linear(f"{base}.0", pp["fc1"])
+        sink.linear(f"{base}.3", pp["fc2"])
+        sink.norm(f"{base}.4", pp["ln"])
+    sink.linear("gating_network.gate_network.0", gp["gate_fc1"])
+    sink.linear("gating_network.gate_network.3", gp["gate_fc2"])
+    sink.linear("gating_network.output_projection", gp["output_projection"])
+
+    pp = params["policy_head"]
+    ps = stats.get("policy_head", {}).get("backbone", {})
+    for j in range(4):
+        sink.conv(f"policy_head.backbone.net.{3 * j}", pp["backbone"][f"conv{j}"])
+        sink.norm(f"policy_head.backbone.net.{3 * j + 1}", pp["backbone"][f"bn{j}"],
+                  ps.get(f"bn{j}"))
+    sink.linear("policy_head.backbone.fc", pp["backbone"]["fc"])
+    for head in ("head_wp", "head_spd"):
+        for j, fc in ((0, "fc1"), (2, "fc2"), (4, "fc3")):
+            sink.linear(f"policy_head.{head}.{j}", pp[head][fc])
+    return sink.out
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """Load a reference `.pth` checkpoint to a state dict, unwrapping
+    `{'model_state_dict': ...}` payloads and DDP `module.` prefixes."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt.get("model_state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    return {k.removeprefix("module."): torch.as_tensor(v) for k, v in sd.items()}
