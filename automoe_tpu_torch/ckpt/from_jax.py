@@ -82,6 +82,17 @@ def _expert(sink: _Sink, expert_type: str, prefix: str, p: Dict, s: Dict):
         raise ValueError(expert_type)
 
 
+def expert_state_dict_from_jax(variables_np: Dict[str, Any],
+                               expert_type: str) -> Dict[str, torch.Tensor]:
+    """A standalone JAX expert's `{"params", "batch_stats"}` (numpy leaves,
+    e.g. a trained BDDDetectionExpert) → the port's expert state dict
+    (`backbone.*`, `head.*` / `decoder.*`, …)."""
+    sink = _Sink()
+    _expert(sink, expert_type, "", variables_np["params"],
+            variables_np.get("batch_stats", {}))
+    return sink.out
+
+
 def state_dict_from_jax(variables_np: Dict[str, Any], config) -> Dict[str, torch.Tensor]:
     """JAX AutoMoE variables (numpy leaves) → the port's state dict."""
     cfg = load_model_config(config)

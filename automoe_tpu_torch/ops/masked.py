@@ -1,0 +1,40 @@
+"""Masked reductions (port of automoe_tpu/ops/masked.py).
+
+Written as the JAX package writes them: a `where`-masked sum over a mean
+with max(count, 1), so a batch with nothing matched gives 0, not the NaN
+that `F.cross_entropy(ignore_index=...)` or a loss over an empty
+boolean-indexed tensor would give.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         ignore_index: int) -> torch.Tensor:
+    """Mean CE over positions whose label != ignore_index.
+    logits [..., C]; labels [...] int."""
+    mask = labels != ignore_index
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    denom = torch.clamp(mask.sum(), min=1)
+    return torch.where(mask, nll, torch.zeros_like(nll)).sum() / denom
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
+    """Elementwise SmoothL1 (Huber with beta), as torch.nn.SmoothL1Loss."""
+    diff = torch.abs(pred.float() - target.float())
+    return torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
+
+
+def masked_smooth_l1(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor, *,
+                     reduction: str = "mean", beta: float = 1.0) -> torch.Tensor:
+    """SmoothL1 over masked rows; mask broadcasts over trailing dims.
+    'mean' averages over all elements of the selected rows, 'sum' sums."""
+    per_elem = smooth_l1(pred, target, beta)
+    m = mask[..., None].to(per_elem.dtype).expand(per_elem.shape)
+    total = (per_elem * m).sum()
+    if reduction == "sum":
+        return total
+    return total / torch.clamp(m.sum(), min=1.0)

@@ -6,9 +6,9 @@ tensor (port of automoe_tpu/ops/pallas_stem.py::_stem_kernel).
 K4 `maxpool3x3s2_int8`: the int8 3x3/s2 SAME max-pool alone (port of
 pallas_stem.py::_pool_kernel).
 
-On a CUDA tensor each wrapper launches its hand-written kernel (built at
-first use with torch.utils.cpp_extension.load into build/torch_ext/, from
-the sources in this package) or raises; on a CPU tensor it runs the plain
+On a CUDA tensor each wrapper launches its hand-written kernel (compiled
+at first use by nvcc into build/torch_ext/, from the sources in this
+package; ops/_ext.py) or raises; on a CPU tensor it runs the plain
 PyTorch version beside it. The plain versions are what the CPU tests hold
 against the JAX package, and what the card's kernels are held against.
 `LAUNCHES` counts kernel launches only.
@@ -16,30 +16,15 @@ against the JAX package, and what the card's kernels are held against.
 from __future__ import annotations
 
 import ctypes
-import threading
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
-CUDA_FLAGS = [
-    "-O3",
-    "-gencode=arch=compute_90a,code=sm_90a",
-    # the sources use the bf16 intrinsics only; lift torch's ban on the
-    # implicit conversions so cuda_bf16.h / mma.h compile unchanged
-    "-U__CUDA_NO_HALF_OPERATORS__",
-    "-U__CUDA_NO_HALF_CONVERSIONS__",
-    "-U__CUDA_NO_BFLOAT16_CONVERSIONS__",
-    "-U__CUDA_NO_HALF2_OPERATORS__",
-]
+from automoe_tpu_torch.ops._ext import check_cuda as _check_cuda
+from automoe_tpu_torch.ops._ext import load_library, raise_on
 
 #: kernel launches per wrapper (a plain-version call does not count)
 LAUNCHES = {"s2d_stem_pool_int8": 0, "maxpool3x3s2_int8": 0}
-
-_lib = None
-_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -47,49 +32,18 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def build(verbose: bool = False) -> ctypes.CDLL:
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.automoe_stem_s2d_pool_int8.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.automoe_maxpool3x3s2_int8.argtypes = [p, p, i, i, i, i, p]
+    lib.automoe_stem_s2d_pool_int8.restype = i
+    lib.automoe_maxpool3x3s2_int8.restype = i
+
+
+def build() -> ctypes.CDLL:
     """Compile csrc/stem.cu for sm_90a (once per process) and bind its C
     entry points. Raises if the build fails."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            from torch.utils.cpp_extension import load
-
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            path = load(
-                name="automoe_stem",
-                sources=[str(_CSRC / "stem.cu")],
-                extra_cuda_cflags=CUDA_FLAGS,
-                build_directory=str(BUILD_DIR),
-                is_python_module=False,
-                verbose=verbose,
-            )
-            if not isinstance(path, str):
-                path = str(BUILD_DIR / "automoe_stem.so")
-            lib = ctypes.CDLL(path)
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.automoe_stem_s2d_pool_int8.argtypes = [p, p, p, p, p, i, i, i, i, p]
-            lib.automoe_maxpool3x3s2_int8.argtypes = [p, p, i, i, i, i, p]
-            lib.automoe_stem_s2d_pool_int8.restype = i
-            lib.automoe_maxpool3x3s2_int8.restype = i
-            _lib = lib
-    return _lib
-
-
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: tensors must be on CUDA or the CPU, got {dev}")
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: all tensors must be on {dev}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: tensors must be contiguous and 16-byte aligned")
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+    return load_library("automoe_stem", "stem.cu", bind=_bind)
 
 
 def pool_out_hw(h: int, w: int):
@@ -129,7 +83,7 @@ def maxpool3x3s2_int8(x: torch.Tensor) -> torch.Tensor:
         x.data_ptr(), out.data_ptr(), B, H, W, C,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    _raise_on(err, "maxpool3x3s2_int8")
+    raise_on(err, "maxpool3x3s2_int8")
     LAUNCHES["maxpool3x3s2_int8"] += 1
     return out
 
@@ -181,6 +135,6 @@ def s2d_stem_pool_int8(xs: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         out.data_ptr(), B, hp, wp, O,
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
-    _raise_on(err, "s2d_stem_pool_int8")
+    raise_on(err, "s2d_stem_pool_int8")
     LAUNCHES["s2d_stem_pool_int8"] += 1
     return out

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases, each of which must pass (none is caught):
-  1. build the CUDA kernels from automoe_tpu_torch/csrc (timed);
+  1. build the CUDA kernels from automoe_tpu_torch/csrc, one nvcc per
+     source, all started together (stem.cu timed here, auction.cu in 8);
   2. K3, the fused int8 stem kernel, against its plain PyTorch version
      at B=8 and B=128, 256x256 input: int8 outputs within ±1 on at most
      0.1% of elements; times from CUDA events;
@@ -21,6 +22,25 @@ Phases, each of which must pass (none is caught):
      "pool" stem variant, which launches K4;
   7. serving: `automoe-serve-torch --quantize` (serving/cli.py) answers 4
      concurrent TCP requests; K3 launches once per server batch.
+  8. the auction kernel's build (csrc/auction.cu, timed);
+  9. K1+K2, the auction with its in-kernel JV escalation, against its plain
+     version at B=32, N=48, Q=64 in three regimes (diverse random costs,
+     degenerate clustered predictions, max_iters=0 = every element through
+     JV with invalid rows and one invalid element): identical assignments,
+     total cost within 1e-4 of scipy's linear_sum_assignment; the kernel's
+     time alone (back-to-back launches of the library's entry point on
+     pre-masked inputs, three blocks of 50) and through its wrapper;
+ 10. two SGD detection train steps on the card (matcher auction_kernel:
+     K1 launches) against the same steps on the CPU (its plain version),
+     f32 with TF32 off, 64x64 images, B=2, N=4, weights from one seed:
+     losses within rtol 1e-4, parameters within rtol 1e-3 / atol 1e-5;
+ 11. the entry point `automoe-train-torch finetune-carla --task detection`
+     (train/cli.py) at 256x256, box cap 48, batch 32, 2 epochs on a seeded
+     CARLA-format cache of 64 train and 32 val frames, at PyTorch's default
+     precision (cuDNN TF32): K1 launches once per train and eval step,
+     losses finite, the train step's stream time (CUDA events around each
+     step, host launch gaps included); then one epoch of `bdd --task
+     detection` on a BDD-format cache where PIL imports.
 
 Prints the card's name and power limit, one JSON line of kernel results,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a CUDA
@@ -31,8 +51,11 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -57,6 +80,23 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_median(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Median over launches, each timed by its own pair of CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def bound(flops: float, flops_peak: float, nbytes: int):
@@ -124,6 +164,193 @@ def phase_k4(stem, gen):
     return res
 
 
+def kernel_ms(ak, benefit, valid, eps, max_iters: int, blocks: int = 3,
+              iters: int = 50) -> list:
+    """K1+K2 alone: the library's entry point launched back to back on
+    pre-masked int32 inputs (no wrapper ops, no launch count), CUDA events
+    around each block of `iters` launches; the mean of each block."""
+    import torch
+
+    lib = ak.build()
+    B, N, Q = benefit.shape
+    b = torch.where(valid[..., None], benefit, torch.zeros_like(benefit)).float().contiguous()
+    v = valid.to(torch.int32).contiguous()
+    e = eps.float().contiguous()
+    out = torch.empty(B, N, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        ak.raise_on(lib.automoe_auction_solve(b.data_ptr(), v.data_ptr(), e.data_ptr(),
+                                              out.data_ptr(), B, N, Q, max_iters, stream),
+                    "auction_solve")
+
+    return [cuda_ms(launch, iters=iters) for _ in range(blocks)]
+
+
+def auction_regimes(gen):
+    """B=32, N=48, Q=64 (256x256 images, box cap 48) in three regimes:
+    (name, benefit, valid, eps, max_iters)."""
+    import torch
+
+    from automoe_tpu_torch.ops.matching import match_cost_matrix
+
+    B, N, Q, C = 32, 48, 64, 10
+    # diverse: random costs (tests/test_pallas_auction.py recipe)
+    benefit = -torch.rand(B, N, Q, device="cuda", generator=gen) * 10
+    valid = torch.ones(B, N, dtype=torch.bool, device="cuda")
+    valid[1, 5:] = False
+    valid[2] = False
+    # degenerate: the clustered predictions of an untrained detector
+    logits = (torch.randn(1, 1, C, device="cuda", generator=gen)
+              + 1e-3 * torch.randn(B, Q, C, device="cuda", generator=gen))
+    boxes = (torch.tensor([0.4, 0.4, 0.6, 0.6], device="cuda")
+             + 1e-3 * torch.randn(B, Q, 4, device="cuda", generator=gen)).clamp(0, 1)
+    tb = torch.rand(B, N, 4, device="cuda", generator=gen) * 0.8 + 0.1
+    tl = torch.randint(0, C, (B, N), device="cuda", generator=gen)
+    deg = -match_cost_matrix(logits, boxes, tb, tl).transpose(1, 2).contiguous()
+    # max_iters=0: every element through JV, with invalid rows and elements
+    jv_valid = valid.clone()
+    jv_valid[3, ::2] = False
+    jv_valid[4, 40:] = False
+
+    def eps_of(b, v):  # the matcher's eps (ops/auction_kernel.py)
+        b = torch.where(v[..., None], b, torch.zeros_like(b))
+        return (b.amax((1, 2)) - b.amin((1, 2))).clamp(min=1e-3) * 1e-6 / N
+
+    all_valid = torch.ones_like(valid)
+    return [("diverse", benefit, valid, eps_of(benefit, valid), 128),
+            ("degenerate", deg, all_valid, eps_of(deg, all_valid), 128),
+            ("jv", benefit, jv_valid, eps_of(benefit, jv_valid), 0)]
+
+
+def phase_auction(ak, gen):
+    import torch
+
+    try:
+        from scipy.optimize import linear_sum_assignment
+    except ImportError:
+        linear_sum_assignment = None
+    res = {}
+    for name, benefit, valid, eps, max_iters in auction_regimes(gen):
+        out = ak.auction_solve(benefit, valid, eps, max_iters=max_iters)
+        torch.cuda.synchronize()
+        masked = torch.where(valid[..., None], benefit, torch.zeros_like(benefit))
+        ref = ak.auction_solve_plain(masked, valid, eps, max_iters=max_iters)
+        assert torch.equal(out, ref), f"auction kernel differs from its plain version ({name})"
+        auction_only = ak.auction_phase_plain(masked, valid, eps, max_iters)
+        escalated = int(((auction_only < 0) & valid).any(1).sum())
+        gap = 0.0
+        if linear_sum_assignment is not None:
+            cost = (-benefit).double().cpu().numpy()
+            o, v = out.cpu().numpy(), valid.cpu().numpy()
+            for b in range(cost.shape[0]):
+                rows = np.where(v[b])[0]
+                if not len(rows):
+                    assert (o[b] == -1).all()
+                    continue
+                sub = cost[b][rows]
+                ri, ci = linear_sum_assignment(sub)
+                gap = max(gap, abs(sub[np.arange(len(rows)), o[b][rows]].sum()
+                                   - sub[ri, ci].sum()))
+            assert gap <= 1e-4, (name, gap)
+        valid_i = valid.int()
+        b_ms, b_by = bound(0.0, PEAK_BF16_FLOPS, nbytes(benefit, valid_i, eps, out))
+        blocks = kernel_ms(ak, benefit, valid, eps, max_iters)
+        res[name] = dict(
+            max_abs_err=int((out - ref).abs().max()), escalated=escalated,
+            max_iters=max_iters, scipy_cost_gap=gap if linear_sum_assignment else None,
+            ms=float(np.median(blocks)), ms_blocks=blocks,
+            wrapper_ms=cuda_ms_median(lambda: ak.auction_solve(benefit, valid, eps,
+                                                               max_iters=max_iters), iters=30),
+            plain_ms=cuda_ms_median(lambda: ak.auction_solve_plain(
+                masked, valid, eps, max_iters=max_iters), iters=3, warmup=1),
+            bound_ms=b_ms, bound_by=b_by)
+        print(f"K1+K2 {name}: {res[name]}", flush=True)
+    return res
+
+
+def phase_train_step():
+    """Two SGD steps on the card (K1) and on the CPU (plain version)."""
+    import torch
+
+    from automoe_tpu_torch.ops import auction_kernel as ak
+    from automoe_tpu_torch.train.state import make_optimizer
+    from automoe_tpu_torch.train.step import make_train_step
+    from automoe_tpu_torch.train.workloads import bdd_expert_workload
+
+    rng = np.random.default_rng(SEED)
+    batches = []
+    for _ in range(2):
+        xy1 = rng.uniform(0.05, 0.45, (2, 4, 2))
+        xy2 = rng.uniform(0.55, 0.95, (2, 4, 2))
+        labels = rng.integers(0, 10, (2, 4)).astype(np.int32)
+        labels[0, -1] = -1
+        batches.append({"image": rng.normal(size=(2, 64, 64, 3)).astype(np.float32),
+                        "bboxes": np.concatenate([xy1, xy2], -1).astype(np.float32),
+                        "labels": labels})
+    wl = bdd_expert_workload("detection", matcher="auction_kernel")
+    step = make_train_step(wl.loss_fn)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = wl.init_model(SEED, torch.device(dev))
+        opt = make_optimizer(model.named_parameters(), learning_rate=1e-3, weight_decay=0.0,
+                             total_steps=2, optimizer="sgd")
+        n0 = ak.LAUNCHES["auction_solve"]
+        losses = [float(step(model, opt, {k: torch.from_numpy(v).to(dev)
+                                          for k, v in b.items()})["loss"]) for b in batches]
+        runs[dev] = (losses, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                     ak.LAUNCHES["auction_solve"] - n0)
+    assert runs["cuda"][2] == 2 and runs["cpu"][2] == 0, "K1 not launched once per card step"
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    worst = 0.0
+    for k, v in runs["cpu"][1].items():
+        if v.is_floating_point():
+            np.testing.assert_allclose(runs["cuda"][1][k].numpy(), v.numpy(), rtol=1e-3,
+                                       atol=1e-5, err_msg=k)
+            worst = max(worst, float((runs["cuda"][1][k] - v).abs().max()))
+    print(f"train step: cuda losses {runs['cuda'][0]} cpu losses {runs['cpu'][0]}, "
+          f"max param diff {worst:.3e}", flush=True)
+    return {"losses_cuda": runs["cuda"][0], "losses_cpu": runs["cpu"][0],
+            "max_param_abs_diff": worst}
+
+
+def phase_train_cli(tmp: Path):
+    """automoe-train-torch on synthetic caches; returns per-subcommand results."""
+    from automoe_tpu_torch.ops import auction_kernel as ak
+    from automoe_tpu_torch.tools.synth import synth_bdd_detection, synth_carla_detection
+    from automoe_tpu_torch.train.cli import main as train_main
+
+    runs = {"finetune-carla": (synth_carla_detection, 2)}
+    try:
+        import PIL  # noqa: F401
+
+        runs["bdd"] = (synth_bdd_detection, 1)
+    except ImportError:
+        print("train CLI: PIL missing, bdd skipped", flush=True)
+    out = {}
+    for cmd, (synth, epochs) in runs.items():
+        root = synth(tmp / cmd, n_per_split={"train": 64, "val": 32}, size=256,
+                     max_boxes=20, seed=SEED)
+        ak.reset_launch_counts()
+        res = train_main([cmd, "--task", "detection", "--data-root", str(root),
+                          "--image-size", "256", "--box-cap", "48", "--batch-size", "32",
+                          "--epochs", str(epochs), "--runs-root", str(tmp / "runs"),
+                          "--run-name", cmd])
+        launches = ak.LAUNCHES["auction_solve"]
+        steps = epochs * (64 // 32 + 32 // 32)
+        assert launches == steps, (cmd, launches, steps)
+        recs = [json.loads(line) for line in
+                (tmp / "runs" / f"bdd_detection_{cmd}" / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["train/loss_epoch"] for r in recs if "train/loss_epoch" in r]
+        vals = [r["val/loss"] for r in recs if "val/loss" in r]
+        assert len(losses) == len(vals) == epochs and np.isfinite(losses + vals).all(), recs
+        out[cmd] = dict(launches=launches, train_loss_epoch=losses, val_loss=vals,
+                        step_ms_p50=res["step_ms_p50"], timed_steps=res["timed_steps"],
+                        samples_per_s=32 * 1e3 / res["step_ms_p50"])
+        print(f"train CLI {cmd}: {out[cmd]}", flush=True)
+    return out
+
+
 def rel_err(a, b) -> float:
     a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
     return float(np.abs(a - b).mean() / (np.abs(a).mean() + 1e-12))
@@ -157,7 +384,7 @@ def main() -> int:
         return 1
     from automoe_tpu_torch.configs import default_model_config
     from automoe_tpu_torch.infer import InferenceEngine
-    from automoe_tpu_torch.ops import stem
+    from automoe_tpu_torch.ops import auction_kernel, stem
     from automoe_tpu_torch.serving import Client
     from automoe_tpu_torch.serving.cli import main as serve_main
 
@@ -166,14 +393,23 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    tf32_defaults = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
-    # 1. build
-    t0 = time.perf_counter()
+    # 1. build: both sources start compiling now, each with its own nvcc
+    t_build = time.perf_counter()
+
+    def timed_auction_build():
+        auction_kernel.build()
+        return time.perf_counter() - t_build
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    auction_build = pool.submit(timed_auction_build)
+    pool.shutdown(wait=False)
     stem.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"build: {time.perf_counter() - t_build:.1f} s", flush=True)
 
     # 2-3. kernels against their plain versions
     k3, k4 = phase_k3(stem, gen), phase_k4(stem, gen)
@@ -252,6 +488,22 @@ def main() -> int:
     assert launches["s2d_stem_pool_int8"] == n_batches >= 1, (launches, n_batches)
     print(f"serving: 4 answers in {n_batches} batches", flush=True)
 
+    # 8. the auction kernel's build (started in phase 1)
+    print(f"build auction.cu: {auction_build.result():.1f} s", flush=True)
+
+    # 9. K1+K2 against the plain version in three regimes
+    k12 = phase_auction(auction_kernel, gen)
+
+    # 10. detection train steps, card against CPU
+    train_step = phase_train_step()
+
+    # 11. the training entry point at a user's default precision; its K1
+    # launches are the main path's
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+    with tempfile.TemporaryDirectory() as tmp:
+        train_cli = phase_train_cli(Path(tmp))
+    launches["auction_solve"] = train_cli["finetune-carla"]["launches"]
+
     src = "automoe_tpu_torch/csrc/stem.cu"
     kernels = []
     for name, res, replaces in (
@@ -272,7 +524,26 @@ def main() -> int:
             "b128": {k: big[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "max_abs_err", "diff_frac")},
         })
+    div = k12["diverse"]
+    kernels.append({
+        "name": "auction_solve", "route": "cuda",
+        "source": "automoe_tpu_torch/csrc/auction.cu",
+        "replaces": "automoe_tpu/ops/pallas_auction.py:157 (+:39 _jv_exact)",
+        "launches": launches["auction_solve"], "max_abs_err": div["max_abs_err"],
+        "ms": div["ms"], "plain_ms": div["plain_ms"], "bound_ms": div["bound_ms"],
+        "bound_by": div["bound_by"],
+        # no PyTorch call solves an assignment
+        "library_ms": None,
+        "shape": [32, 48, 64], "escalated": div["escalated"],
+        "ms_blocks": div["ms_blocks"], "wrapper_ms": div["wrapper_ms"],
+        **{name: {k: k12[name][k] for k in ("ms", "ms_blocks", "wrapper_ms", "plain_ms",
+                                            "bound_ms", "max_abs_err", "escalated",
+                                            "max_iters")}
+           for name in ("degenerate", "jv")},
+    })
     print(json.dumps({"engine_step_ms_b8": steps}), flush=True)
+    print(json.dumps({"train_step_cuda_vs_cpu": train_step, "train_cli": train_cli}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -70,3 +70,110 @@ def test_int8_engine_on_cuda(gen, variant):
                           **kw).infer_batch(frames, np.ones(2))
     assert np.isfinite(out["waypoints"]).all()
     np.testing.assert_allclose(out["expert_weights"], ref["expert_weights"], atol=0.05)
+
+
+def _auction_inputs(B, N, Q, regime, seed=0):
+    """benefit [B,N,Q], valid [B,N], eps [B] on the card: random costs, or
+    the clustered predictions of an untrained detector (near-ties)."""
+    from automoe_tpu_torch.ops.matching import match_cost_matrix
+
+    rng = np.random.default_rng(seed)
+    if regime == "degenerate":
+        C = 10
+        logits = rng.normal(size=(1, 1, C)) + 1e-3 * rng.normal(size=(B, Q, C))
+        boxes = np.clip(np.array([0.4, 0.4, 0.6, 0.6]) + 1e-3 * rng.normal(size=(B, Q, 4)), 0, 1)
+        tb = rng.uniform(0.1, 0.9, (B, N, 4))
+        tl = rng.integers(0, C, (B, N))
+        cost = match_cost_matrix(*(torch.tensor(a, dtype=torch.float32, device="cuda")
+                                   for a in (logits, boxes, tb)),
+                                 torch.tensor(tl, device="cuda"))
+        benefit = -cost.transpose(1, 2).contiguous()
+    else:
+        benefit = -torch.tensor(rng.uniform(0, 10, (B, N, Q)), dtype=torch.float32,
+                                device="cuda")
+    valid = torch.ones(B, N, dtype=torch.bool, device="cuda")
+    valid[0, N // 2:] = False
+    valid[-1] = B < 3  # one whole element invalid when B >= 3
+    spread = (benefit.amax((1, 2)) - benefit.amin((1, 2))).clamp(min=1e-3)
+    return benefit, valid, spread * 1e-6 / N
+
+
+@pytest.mark.parametrize("B,N,Q,regime,max_iters", [
+    (4, 48, 64, "random", 128),
+    (4, 48, 64, "degenerate", 128),
+    (3, 48, 64, "random", 0),
+    (2, 64, 256, "random", 128),  # 512^2 images: above 48 KB of shared memory
+    (3, 12, 20, "degenerate", 5),
+    (2, 3, 40, "random", 1000),
+])
+def test_auction_kernel_matches_plain(gen, B, N, Q, regime, max_iters):
+    from automoe_tpu_torch.ops import auction_kernel as ak
+
+    benefit, valid, eps = _auction_inputs(B, N, Q, regime)
+    n = ak.LAUNCHES["auction_solve"]
+    out = ak.auction_solve(benefit, valid, eps, max_iters=max_iters)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["auction_solve"] == n + 1
+    masked = torch.where(valid[..., None], benefit, torch.zeros_like(benefit))
+    ref = ak.auction_solve_plain(masked, valid, eps, max_iters=max_iters)
+    assert torch.equal(out, ref)
+    assert (out[~valid] == -1).all()
+
+
+def test_auction_kernel_rejects_oversized(gen):
+    from automoe_tpu_torch.ops import auction_kernel as ak
+
+    benefit = torch.zeros(1, 256, 256, device="cuda")
+    valid = torch.ones(1, 256, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError):
+        ak.auction_solve(benefit, valid, torch.ones(1, device="cuda"))
+
+
+def test_detection_train_step_cuda_matches_cpu(gen):
+    """Two SGD steps of the detection workload (auction_kernel: K1 on the
+    card, its plain version on the CPU), f32 without TF32, same weights:
+    losses within rtol 1e-4, parameters within rtol 1e-3 / atol 1e-5."""
+    from automoe_tpu_torch.ops import auction_kernel as ak
+    from automoe_tpu_torch.train.state import make_optimizer
+    from automoe_tpu_torch.train.step import make_train_step
+    from automoe_tpu_torch.train.workloads import bdd_expert_workload
+
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.normal(size=(2, 64, 64, 3)).astype(np.float32),
+             "bboxes": np.concatenate([rng.uniform(0.05, 0.45, (2, 4, 2)),
+                                       rng.uniform(0.55, 0.95, (2, 4, 2))], -1).astype(np.float32),
+             "labels": rng.integers(0, 10, (2, 4)).astype(np.int32)}
+    wl = bdd_expert_workload("detection", matcher="auction_kernel")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = wl.init_model(0, torch.device(dev))
+        opt = make_optimizer(model.named_parameters(), learning_rate=1e-3, weight_decay=0.0,
+                             total_steps=2, optimizer="sgd")
+        step = make_train_step(wl.loss_fn)
+        n = ak.LAUNCHES["auction_solve"]
+        losses = [float(step(model, opt, {k: torch.from_numpy(v).to(dev)
+                                          for k, v in batch.items()})["loss"])
+                  for _ in range(2)]
+        runs[dev] = (losses, model.state_dict(), ak.LAUNCHES["auction_solve"] - n)
+    assert runs["cuda"][2] == 2 and runs["cpu"][2] == 0
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    for k, v in runs["cpu"][1].items():
+        if v.is_floating_point():
+            np.testing.assert_allclose(runs["cuda"][1][k].cpu().numpy(), v.numpy(), rtol=1e-3,
+                                       atol=1e-5, err_msg=k)
+
+
+def test_train_cli_on_cuda_launches_k1_per_step(gen, tmp_path):
+    from automoe_tpu_torch.ops import auction_kernel as ak
+    from automoe_tpu_torch.tools.synth import synth_carla_detection
+    from automoe_tpu_torch.train.cli import main
+
+    root = synth_carla_detection(tmp_path / "data", n_per_split={"train": 4, "val": 3},
+                                 size=64, max_boxes=3)
+    n = ak.LAUNCHES["auction_solve"]
+    res = main(["finetune-carla", "--task", "detection", "--data-root", str(root),
+                "--image-size", "64", "--box-cap", "4", "--batch-size", "2", "--epochs", "2",
+                "--num-workers", "1", "--runs-root", str(tmp_path / "runs")])
+    # 2 epochs x (2 train steps + 2 val steps, the second a padded tail)
+    assert ak.LAUNCHES["auction_solve"] - n == 8
+    assert np.isfinite(res["best_val_loss"]) and res["device_timed"] == 1.0

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_port_common  # noqa: F401  (caps torch's intra-op threads)
 from automoe_tpu.ops.pallas_stem import maxpool3x3s2_int8, s2d_stem_pool_int8
 
 O = 256  # 4 experts x 64 stem channels, as on the serving path

@@ -12,6 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+# the suite runs several workers on the same cores as the JAX compiles:
+# two intra-op threads per worker keep torch from oversubscribing them
+torch.set_num_threads(2)
+
 B, S = 2, 64
 CAM_HW = (96, 128)
 
