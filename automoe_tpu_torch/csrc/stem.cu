@@ -2,30 +2,78 @@
 // (loaded through ctypes by automoe_tpu_torch/ops/stem.py; no PyTorch
 // headers, so the build takes seconds).
 //
-// K3  automoe_stem_s2d_pool_int8 replaces automoe_tpu/ops/pallas_stem.py
+// K3  automoe_stem_s2d_pool_int8 replaces automoe_tpu/ops/pallas_stem.py:103
 //     _stem_kernel (launched by s2d_stem_pool_int8). It computes, for all
 //     experts' stems at once,
 //       out = maxpool3x3s2_SAME( clip(rint((conv4x4(xs, w) + bias)^+ * inv), ±127) )
 //     over the 2x2 space-to-depth image xs [B,Hc+4,Wc+4,12] (bf16), with w
 //     the [192,O] bf16 matrix of the rewritten 4x4/s1 kernel (row
 //     (a*4+b)*12+c), bias and inv [O] f32, out [B,Ho,Wo,O] int8.
-//     Bound: at B=128, 256x256 input it does 206 GFLOP in bf16 against
-//     188 MB of compulsory traffic, so the tensor cores bound it (0.21 ms
-//     at the H100's 989 TFLOP/s vs 0.06 ms for the bytes). What it keeps
-//     out of device memory is the pre-pool [B,Hc,Wc,O] tensor: each block
-//     holds its conv tile in shared memory and writes only pooled int8.
-//     Design: one block per (image, 4x8 pooled tile, 64 output channels).
-//     The block builds the im2col matrix of its 9x17 conv positions
-//     (padded to 160 rows) in shared memory, multiplies it by the 192x64
-//     weight slice with WMMA bf16 tensor-core tiles (f32 accumulation),
-//     then pools the f32 sums and quantizes. Because x -> fl(x+b), ReLU
-//     and x -> fl(x*inv) (inv > 0) are monotone, pooling the raw sums and
-//     then adding bias/ReLU/quantizing once is exactly quantize-then-pool.
-//     Conv positions outside [0,Hc)x[0,Wc) are skipped, i.e. SAME padding
-//     with -inf. Every global->shared copy is a cp.async issued up front
-//     (zero-filled where the position is out of range), so a block waits
-//     on memory once, not once per copy. Not yet: TMA, wgmma, pipelining
-//     across tiles, or one im2col shared by all output channels.
+//     Bound: at 256x256 input (Hc = Wc = 128, O = 256) it does 1.61 GFLOP
+//     of bf16 products per image against 1.47 MB of compulsory traffic, so
+//     the tensor cores bound it: 0.0130 ms at B=8 and 0.2085 ms at B=128
+//     at the H100's 989 TFLOP/s (the bytes alone: 0.0035 / 0.056 ms).
+//     What it keeps out of device memory is the pre-pool [B,Hc,Wc,O]
+//     tensor and any im2col matrix.
+//
+//     Design (one kernel, no other launch per call):
+//     - Persistent grid: one 256-thread block (two warpgroups) per SM,
+//       each walking the (image, 8x8 pooled tile) work items in the stride
+//       order item = blockIdx.x + i * gridDim.x, so every tile is done
+//       exactly once whatever the count. O > 256 splits into groups of 256
+//       channels along gridDim.y, each block keeping one group.
+//     - Resident weights: each block writes w[:, group] (192 x 256 bf16,
+//       96 KB) into shared memory once, transposed in registers into the
+//       K-major 128-byte-swizzled layout that wgmma reads B from.
+//     - One staged patch per tile for all channels: an 8x8 pooled tile
+//       needs (2*8+1)^2 = 17x17 = 289 conv positions and an input patch of
+//       (17+3) x (17+3) x 12 bf16 = 9,600 bytes, copied with 8-byte
+//       cp.async (a 12-channel pixel is 24 bytes, so 16-byte copies would
+//       need an even first pixel in an even-width image). Implicit GEMM:
+//       the A row of conv position (r,c) for tap row a is the 48 contiguous
+//       values patch[r+a][c..c+3][0..12), so k = a*48 + b*12 + ch is w's
+//       row order and each k16 slice is read straight from the patch with
+//       ldmatrix.x4 (K = 192, nothing padded; no im2col anywhere).
+//       ldmatrix needs 16-byte aligned rows and pixel p starts at byte 24p,
+//       so the patch is kept twice: as is (even p) and 8 bytes earlier
+//       (odd p), the second copy 48 bytes off in the 128-byte bank cycle so
+//       that the 8 rows of one 8x8 matrix hit distinct banks.
+//     - Double buffering: tile t+1's patch is copied (cp.async groups)
+//       while tile t runs its products, epilogue and pool.
+//     - Tensor cores: wgmma.m64n128k16 bf16 -> f32, A from registers, B
+//       from the resident weights. Warpgroup w owns channels 128w..+128
+//       and runs the 289 positions as 5 row blocks of 64 (320 rows); 12
+//       wgmma per block. A warp stays in its wgmma issue until the products
+//       have read its A registers, so the two warpgroups take turns on the
+//       tensor cores (named barriers): one quantizes and pools block j
+//       while the other's products for block j run.
+//     - Epilogue, per conv position in registers: y = s + bias, then
+//       clip(rint(relu(y) * inv), 127) (the plain version's order) in
+//       three FP32 operations (see epilogue), as bytes into a shared C
+//       tile (289 x 256). It needs inv >= 0, which a quantization scale's
+//       inverse is; the plain version also takes a negative inv.
+//     - Pool: after each row block, the pooled rows whose three conv rows
+//       are all in C are reduced with max.u16x2 (two bytes per 16-bit
+//       lane, see pool_rows), 16 channels per thread, 16-byte stores.
+//       Conv positions outside [0,Hc)x[0,Wc) are excluded (their taps
+//       repeat an in-window one), not zero-filled.
+//     - Shared memory: weights 98,304 + C 320 x 272 = 87,040 + two patch
+//       buffers of 19,328 (both copies) + 1,024 of alignment slack =
+//       225,024 bytes of the 232,448 a block may use. cudaFuncSetAttribute and the SM count are taken once per
+//       process and device.
+//     Tile choice: at B=8 there are 8 * 4096 / A items for a pooled tile
+//     of area A, and at least 4 per SM (528) needs A <= 62. A tile's conv
+//     positions over its own are (1 + 1/(2 TP_H)) (1 + 1/(2 TP_W)), at
+//     least 1.195 for A = 32 (4x8), 1.129 for 8x8; and wgmma pads M to 64
+//     rows: 4x8 gives 153 -> 192 rows (1.50x), 8x8 289 -> 320 (1.25x),
+//     8x16 561 -> 576 (1.125x, 256 items at B=8). So "<= 1.15x" and ">= 528
+//     items" cannot both hold here; 8x8 costs 1.25x and leaves 512 items at
+//     B=8 (3.88 per SM: 4 rounds, 97% balance) and 8,192 at B=128.
+//     Not yet: A from shared memory (wgmma's own A descriptor cannot
+//     describe 24-byte pixel rows), TMA for the patch, a halo shared
+//     between neighbouring tiles, and overlap of the pool's shared-memory
+//     reads with the other warpgroup's B reads (both compete for the
+//     SM's 128 bytes per clock).
 //
 // K4  automoe_maxpool3x3s2_int8 replaces automoe_tpu/ops/pallas_stem.py
 //     _pool_kernel (launched by maxpool3x3s2_int8): 3x3/s2 SAME max-pool
@@ -34,16 +82,13 @@
 //     image in and out); one thread per (pixel, 16 channels) with 16-byte
 //     loads and per-byte __vmaxs4.
 //
-// Every entry point launches on the given stream, allocates nothing and
-// returns the cudaError_t of the launch.
+// Every launching entry point launches on the given stream, allocates
+// nothing and returns the cudaError_t of the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
@@ -55,132 +100,389 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_by
                "r"(src_bytes));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses of d across the async products
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64x128] (+)= A[64x16] (registers, the mma.m16n8k16 A layout per warp)
+// * B[16x128] (shared memory, through the descriptor); scale_d 0 overwrites D
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %68, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %69, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(desc));
 }
 
 constexpr int CIN = 12;                      // s2d channels
 constexpr int KDIM = 16 * CIN;               // 4x4 taps x 12 = 192
-constexpr int TP_H = 4;                      // pooled rows per block
-constexpr int TP_W = 8;                      // pooled cols per block
-constexpr int TC_H = 2 * TP_H + 1;           // conv rows per block (9)
-constexpr int TC_W = 2 * TP_W + 1;           // conv cols per block (17)
-constexpr int M_VALID = TC_H * TC_W;         // 153 conv positions
-constexpr int M_TILES = (M_VALID + 15) / 16; // 10
-constexpr int M_PAD = M_TILES * 16;          // 160
-constexpr int OC = 64;                       // output channels per block
-constexpr int N_TILES = OC / 16;             // 4
-constexpr int LDA = KDIM + 8;                // bf16 row pitch of A (skews banks)
-constexpr int LDB = OC + 8;                  // bf16 row pitch of W
-constexpr int LDC = OC + 4;                  // f32 row pitch of C
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int M_GROUPS = WARPS / N_TILES;    // warps sharing a column tile
-constexpr int MT_PER_WARP = M_TILES / M_GROUPS;
-static_assert(M_TILES % M_GROUPS == 0, "row tiles must split evenly");
-constexpr size_t A_BYTES = size_t(M_PAD) * LDA * 2;
-constexpr size_t C_BYTES = size_t(M_PAD) * LDC * 4;
-constexpr size_t AC_BYTES = A_BYTES > C_BYTES ? A_BYTES : C_BYTES;
-constexpr size_t B_BYTES = size_t(KDIM) * LDB * 2;
-constexpr size_t STEM_SMEM = AC_BYTES + B_BYTES;  // 91,648 bytes
-static_assert(AC_BYTES % 128 == 0, "W slice must stay 128-byte aligned");
+constexpr int K_STEPS = KDIM / 16;           // 12 k16 slices: tap row a, third j
+constexpr int TP_H = 8;                      // pooled rows per tile
+constexpr int TP_W = 8;                      // pooled cols per tile
+constexpr int TC_H = 2 * TP_H + 1;           // conv rows per tile (17)
+constexpr int TC_W = 2 * TP_W + 1;           // conv cols per tile (17)
+constexpr int M_VALID = TC_H * TC_W;         // 289 conv positions
+constexpr int M_BLOCKS = (M_VALID + 63) / 64;  // 5 wgmma row blocks (320 rows)
+constexpr int PH = TC_H + 3;                 // patch rows (20)
+constexpr int PW = TC_W + 3;                 // patch cols (20)
+constexpr int ROW_CHUNKS = PW * CIN / 4;     // 8-byte copies per patch row (60)
+constexpr int CHUNKS = PH * ROW_CHUNKS;      // 1,200
+constexpr int PATCH_BYTES = CHUNKS * 8;      // 9,600
+constexpr int OG = 256;                      // output channels per block
+constexpr int NH = OG / 2;                   // channels per warpgroup (128)
+constexpr int THREADS = 256;                 // two warpgroups
+constexpr int LDC = OG + 16;                 // byte row pitch of the int8 C tile
+// weights, K-major with the 128-byte swizzle: per 64-k atom column, 32
+// groups of 8 channels x 128 bytes (64 k), 16-byte chunk c of row n at
+// chunk c ^ n; groups 1,024 bytes apart (SBO), atom columns 32 KB apart
+constexpr int W_GROUP = 1024, W_KATOM = OG / 8 * W_GROUP;          // 32,768
+// patch buffer: copy 0 at +0, copy 1 (shifted 8 bytes earlier) based at
+// Q1 = PATCH_BYTES + 48, i.e. 48 bytes off copy 0 in the 128-byte cycle
+constexpr int Q1 = PATCH_BYTES + 48;
+constexpr int BUF_BYTES = (Q1 + PATCH_BYTES - 8 + 127) / 128 * 128;  // 19,328
+constexpr int W_OFF = 0;
+constexpr int C_OFF = W_OFF + K_STEPS / 4 * W_KATOM;                // 98,304
+constexpr int P_OFF = C_OFF + M_BLOCKS * 64 * LDC;                  // 185,344
+constexpr int STEM_SMEM = P_OFF + 2 * BUF_BYTES + 1024;  // 225,024 with the alignment slack
+static_assert(PATCH_BYTES % 128 == 0 && C_OFF % 128 == 0 && P_OFF % 128 == 0,
+              "shared regions must stay 128-byte aligned");
+static_assert(STEM_SMEM <= 232448, "over the 227 KB a block may use");
 
-__global__ void __launch_bounds__(THREADS)
+// Copy the patch of xs rows r0..r0+PH, cols c0..c0+PW of one image into
+// both copies of a buffer, zero-filled outside the image.
+__device__ __forceinline__ void stage_patch(unsigned char* buf,
+                                            const __nv_bfloat16* __restrict__ xb,
+                                            int r0, int c0, int Hp, int Wp) {
+  for (int i = threadIdx.x; i < CHUNKS; i += THREADS) {
+    const int pr = i / ROW_CHUNKS, k = i % ROW_CHUNKS;
+    const int R = r0 + pr, C = c0 + k / 3;
+    const bool ok = R >= 0 && R < Hp && C >= 0 && C < Wp;
+    const __nv_bfloat16* src = ok ? xb + ((size_t)R * Wp + C) * CIN + (k % 3) * 4 : xb;
+    cp_async8(buf + 8 * i, src, ok ? 8 : 0);
+    cp_async8(buf + Q1 + 8 * (i - 1), src, ok ? 8 : 0);
+  }
+}
+
+// Byte offset (within a patch buffer) of the ldmatrix row that this lane
+// supplies for m16 row tile mt at k slice 0; slice (a, j) adds
+// a*PW*24 + 32*j. Padding rows read position 0 and are never stored.
+__device__ __forceinline__ int a_row_offset(int mt, int lane) {
+  int m = mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  if (m >= M_VALID) m = 0;
+  const int p = (m / TC_W) * PW + m % TC_W;  // patch pixel of the position
+  return ((p & 1) ? Q1 + 24 * p - 8 : 24 * p) + 16 * (lane >> 4);
+}
+
+// A fragments of all 12 k slices of one 64-row block (this warp's 16 rows)
+__device__ __forceinline__ void load_a(uint32_t (&a)[K_STEPS][4], unsigned row) {
+#pragma unroll
+  for (int kk = 0; kk < K_STEPS; ++kk)
+    ldmatrix_x4(a[kk], row + (kk / 3) * PW * CIN * 2 + (kk % 3) * 32);
+}
+
+__device__ __forceinline__ void issue_block(float (&d)[64], const uint32_t (&a)[K_STEPS][4],
+                                            uint64_t desc) {
+  fence_acc(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < K_STEPS; ++kk)
+    wgmma_m64n128k16(d, a[kk], desc + (uint64_t)(((kk / 4) * W_KATOM + (kk % 4) * 32) >> 4),
+                     kk);
+  wgmma_commit();
+}
+
+// C keeps the channels of each 16-channel group in the order the
+// accumulators hold them: channel 8h + 2t + e at byte 4t + 2h + e, so a
+// thread stores the 4 bytes of channels 2t, 2t+1, 8+2t, 9+2t at once (the
+// pool restores the order). v[u][k] holds a value's bits in its low byte:
+// u = column tile i0 + u, k = 2 * (row half) + (channel parity).
+__device__ __forceinline__ void store_c(unsigned char* row, int i0, const uint32_t (&v)[4][4]) {
+#pragma unroll
+  for (int u = 0; u < 4; u += 2)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      *reinterpret_cast<uint32_t*>(row + 8 * hr * LDC + 8 * (i0 + u)) =
+          __byte_perm(__byte_perm(v[u][2 * hr], v[u][2 * hr + 1], 0x0040),
+                      __byte_perm(v[u + 1][2 * hr], v[u + 1][2 * hr + 1], 0x0040), 0x5410);
+}
+
+// Bias, ReLU, rint(v * inv) clipped to 127 per conv position, as bytes into
+// C, in three FP32 operations for inv >= 0 (inv is the inverse of a
+// quantization scale): y = s + bias; u = sat(y * inv / 128), which is
+// clamp(relu(y) * inv, 0, 128) / 128 exactly (a power-of-two scale does not
+// change the rounding); then u * 128 + 1.5 * 2^23 rounds it half to even
+// (as rintf, torch.round and jnp.round do) and leaves the integer (0..128;
+// the pool clips 128 to 127) in the low byte of the sum's bits. Thread
+// (g, t) of warp wq holds rows 16 wq + g (+8) of the block and channels
+// 8i + 2t (+1) of its warpgroup's 128; qr[i] holds (bias, inv / 128) of
+// channels 8i + 2t and 8i + 2t + 1. Rows past M_VALID land in C's padding.
+__device__ __forceinline__ float mul_sat(float a, float b) {
+  float r;
+  asm("mul.rn.sat.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ void epilogue(float (&d)[64], unsigned char* Cs,
+                                         const float4 (&qr)[16], int mblock, int wq, int lane,
+                                         int c0) {
+  fence_acc(d);
+  const int g = lane >> 2, t = lane & 3;
+  unsigned char* row = Cs + (mblock * 64 + wq * 16 + g) * LDC + c0 + 4 * t;
+#pragma unroll
+  for (int i0 = 0; i0 < 16; i0 += 4) {
+    const float4* qp = qr + i0;
+    uint32_t v[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float b = (k & 1) ? qp[u].z : qp[u].x, iv = (k & 1) ? qp[u].w : qp[u].y;
+        v[u][k] = __float_as_uint(
+            __fmaf_rn(mul_sat(__fadd_rn(d[4 * (i0 + u) + k], b), iv), 128.0f, 12582912.0f));
+      }
+    store_c(row, i0, v);
+  }
+}
+
+// max of unsigned 16-bit lanes (a native instruction on sm_90). Its high
+// byte is the max of the lanes' high bytes whatever the low bytes hold.
+__device__ __forceinline__ uint32_t max_u16x2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("max.u16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// C's byte order within a 16-channel group (see store_c) back to channels
+__device__ __forceinline__ uint4 unpermute(uint32_t w0, uint32_t w1, uint32_t w2, uint32_t w3) {
+  return make_uint4(__byte_perm(w0, w1, 0x5410), __byte_perm(w2, w3, 0x5410),
+                    __byte_perm(w0, w1, 0x7632), __byte_perm(w2, w3, 0x7632));
+}
+
+// First pooled row of the tile whose 3 conv rows are not all in C after
+// row block j (j = 5: one past the last).
+__host__ __device__ constexpr int pool_first(int j) {
+  return (((j * 64 < M_VALID ? j * 64 : M_VALID) / TC_W) - 1) / 2;
+}
+static_assert(pool_first(0) == 0 && pool_first(M_BLOCKS) == TP_H, "pool rows must tile");
+
+// 3x3/s2 max over the quantized positions of pooled rows [pr0, pr1) of the
+// tile, 16 of the warpgroup's channels per thread. C's bytes are 0..128:
+// the odd bytes are the high bytes of the raw words' 16-bit lanes and the
+// even ones those of the words shifted by 8, so max.u16x2 reduces both;
+// then 128 becomes 127. A tap outside
+// [0,Hc)x[0,Wc) is clamped onto the window's edge, which is inside the
+// window too (and inside the tile's C rows even where p >= Ho), so it
+// repeats a value instead of adding one.
+__device__ __forceinline__ void pool_rows(const unsigned char* Cs, int8_t* out_b, int c0, int og,
+                                          int pr0, int pr1, int p0, int q0, int Hc, int Wc,
+                                          int Ho, int Wo, int O, int t128) {
+  for (int i = t128; i < (pr1 - pr0) * TP_W * (NH / 16); i += 128) {
+    const int gi = i % (NH / 16), pl = i / (NH / 16);
+    const int p = p0 + pr0 + pl / TP_W, q = q0 + pl % TP_W;
+    const int ch = c0 + gi * 16;
+    const unsigned char* cb = Cs + ch;
+    int rows[3], cols[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      rows[k] = (min(max(2 * p - 1 + k, 0), Hc - 1) - (2 * p0 - 1)) * TC_W * LDC;
+      cols[k] = (min(max(2 * q - 1 + k, 0), Wc - 1) - (2 * q0 - 1)) * LDC;
+    }
+    uint32_t ev[4], od[4];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const uint4 v = *reinterpret_cast<const uint4*>(cb + rows[k / 3] + cols[k % 3]);
+      const uint32_t vw[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ev[j] = k ? max_u16x2(ev[j], vw[j] << 8) : vw[j] << 8;
+        od[j] = k ? max_u16x2(od[j], vw[j]) : vw[j];
+      }
+    }
+    uint32_t r[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      r[j] = __byte_perm(ev[j], od[j], 0x7351);
+      r[j] -= (r[j] >> 7) & 0x01010101u;
+    }
+    if (p < Ho && q < Wo && ch < og)
+      *reinterpret_cast<uint4*>(out_b + ((size_t)p * Wo + q) * O + ch) =
+          unpermute(r[0], r[1], r[2], r[3]);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
 s2d_stem_pool_int8_kernel(const __nv_bfloat16* __restrict__ xs,
                           const __nv_bfloat16* __restrict__ w,
                           const float* __restrict__ bias,
                           const float* __restrict__ inv,
                           int8_t* __restrict__ out,
-                          int Hp, int Wp, int O, int Ho, int Wo) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* Cs = reinterpret_cast<float*>(smem);  // reuses As after the MMAs
-  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(smem + AC_BYTES);
+                          int B, int Hp, int Wp, int O, int Ho, int Wo) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // the swizzled weights need a 1,024-byte aligned base
+  const unsigned raw_addr = static_cast<unsigned>(__cvta_generic_to_shared(smem_raw));
+  unsigned char* smem = smem_raw + ((1024 - (raw_addr & 1023)) & 1023);
+  unsigned char* Cs = smem + C_OFF;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wq = warp & 3;  // warpgroup (channel half), warp in it
 
   const int Hc = Hp - 4, Wc = Wp - 4;
-  const int n_oc = O / OC;
-  const int b = blockIdx.z / n_oc;
-  const int oc0 = (blockIdx.z % n_oc) * OC;
-  const int p0 = blockIdx.y * TP_H, q0 = blockIdx.x * TP_W;
-  const int r0 = 2 * p0 - 1, c0 = 2 * q0 - 1;  // first conv row/col of the tile
-  const int tid = threadIdx.x;
+  const int tiles_h = (Ho + TP_H - 1) / TP_H, tiles_w = (Wo + TP_W - 1) / TP_W;
+  const int per_image = tiles_h * tiles_w, items = B * per_image;
+  const int o0 = blockIdx.y * OG;           // this block's channel group
+  const int og = min(OG, O - o0);           // 64, 128, 192 or 256
 
-  // 1. weight slice W[:, oc0:oc0+64], 16 bytes per copy
-  for (int i = tid; i < KDIM * (OC / 8); i += THREADS) {
-    const int k = i / (OC / 8), j = i % (OC / 8);
-    cp_async16(Bs + k * LDB + j * 8, w + (size_t)k * O + oc0 + j * 8);
-  }
-  // 2. im2col: A[m, a*48 + t] = xs[b, r+a, c + t/12, t%12] for the conv
-  //    position m = (r-r0)*TC_W + (c-c0). For one (m, a) the 48 values are
-  //    contiguous in xs (4 columns x 12 channels): 12 copies of 8 bytes,
-  //    zero-filled for padding rows and out-of-range positions.
-  const __nv_bfloat16* xb = xs + (size_t)b * Hp * Wp * CIN;
-  for (int i = tid; i < M_PAD * 4 * 12; i += THREADS) {
-    const int j = i % 12, a = (i / 12) % 4, m = i / 48;
-    const int r = r0 + m / TC_W, c = c0 + m % TC_W;
-    const bool valid = m < M_VALID && r >= 0 && r < Hc && c >= 0 && c < Wc;
-    const __nv_bfloat16* src =
-        valid ? xb + ((size_t)(r + a) * Wp + c) * CIN + j * 4 : xb;
-    cp_async8(As + m * LDA + a * 48 + j * 4, src, valid ? 8 : 0);
-  }
-  cp_async_wait_all();
-  __syncthreads();
+  auto tile_origin = [&](int item, int& b, int& p0, int& q0) {
+    b = item / per_image;
+    const int tl = item % per_image;
+    p0 = (tl / tiles_w) * TP_H;
+    q0 = (tl % tiles_w) * TP_W;
+  };
+  auto stage = [&](int item, int buf) {
+    int b, p0, q0;
+    tile_origin(item, b, p0, q0);
+    stage_patch(smem + P_OFF + buf * BUF_BYTES, xs + (size_t)b * Hp * Wp * CIN,
+                2 * p0 - 1, 2 * q0 - 1, Hp, Wp);
+  };
 
-  // 3. C[160,64] = A[160,192] @ W[192,64]: warp w owns column tile w % 4
-  //    and row tiles w/4, w/4 + 2, ..., accumulating in f32.
-  const int warp = tid / 32;
-  const int nt = warp % N_TILES;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MT_PER_WARP];
+  int item = blockIdx.x;
+  stage(item, 0);  // the first patch flies while the weights are set up
+  cp_async_commit();
+  // weights, once per block: core matrix (kk, n8 group, k half) holds
+  // rows n = 8 ng .. +8 of w[16 kk + 8 h .. +8, o0 + n], transposed in
+  // registers from 8 16-byte loads; channels past og are zero
+  for (int cm = tid; cm < K_STEPS * (OG / 8) * 2; cm += THREADS) {
+    const int h = cm & 1, ng = (cm >> 1) % (OG / 8), kk = cm / (OG / 4);
+    uint4 v[8], r[8];
 #pragma unroll
-  for (int i = 0; i < MT_PER_WARP; ++i) wmma::fill_fragment(acc[i], 0.0f);
-#pragma unroll 2
-  for (int kk = 0; kk < KDIM / 16; ++kk) {
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-    wmma::load_matrix_sync(bf, Bs + kk * 16 * LDB + nt * 16, LDB);
+    for (int k = 0; k < 8; ++k)
+      v[k] = 8 * ng < og ? *reinterpret_cast<const uint4*>(
+                               w + (size_t)(16 * kk + 8 * h + k) * O + o0 + 8 * ng)
+                         : make_uint4(0, 0, 0, 0);
 #pragma unroll
-    for (int i = 0; i < MT_PER_WARP; ++i) {
-      const int mt = warp / N_TILES + i * M_GROUPS;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-      wmma::load_matrix_sync(af, As + mt * 16 * LDA + kk * 16, LDA);
-      wmma::mma_sync(acc[i], af, bf, acc[i]);
-    }
-  }
-  __syncthreads();  // all warps are done with As before Cs overwrites it
+    for (int n = 0; n < 8; ++n) {
+      const unsigned sel = (n & 1) ? 0x7632u : 0x5410u;
+      uint32_t x[8];
 #pragma unroll
-  for (int i = 0; i < MT_PER_WARP; ++i) {
-    const int mt = warp / N_TILES + i * M_GROUPS;
-    wmma::store_matrix_sync(Cs + mt * 16 * LDC + nt * 16, acc[i], LDC,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // 4. 3x3/s2 max over the raw f32 sums, then bias, ReLU, quantize.
-  const int ch = tid % OC;
-  const float bch = bias[oc0 + ch];
-  const float ich = inv[oc0 + ch];
-  for (int t = tid / OC; t < TP_H * TP_W; t += THREADS / OC) {
-    const int p = p0 + t / TP_W, q = q0 + t % TP_W;
-    if (p >= Ho || q >= Wo) continue;
-    float mx = -INFINITY;
-    for (int dr = 0; dr < 3; ++dr) {
-      const int r = 2 * p - 1 + dr;
-      if (r < 0 || r >= Hc) continue;
-      for (int dc = 0; dc < 3; ++dc) {
-        const int c = 2 * q - 1 + dc;
-        if (c < 0 || c >= Wc) continue;
-        mx = fmaxf(mx, Cs[((r - r0) * TC_W + (c - c0)) * LDC + ch]);
+      for (int k = 0; k < 8; ++k) {
+        const uint4 u = v[k];
+        x[k] = (n >> 1) == 0 ? u.x : (n >> 1) == 1 ? u.y : (n >> 1) == 2 ? u.z : u.w;
       }
+      r[n] = make_uint4(__byte_perm(x[0], x[1], sel), __byte_perm(x[2], x[3], sel),
+                        __byte_perm(x[4], x[5], sel), __byte_perm(x[6], x[7], sel));
     }
-    const float v = fmaxf(mx + bch, 0.0f);
-    // rintf rounds half to even, as jnp.round / torch.round do
-    const float qv = fminf(fmaxf(rintf(v * ich), -127.0f), 127.0f);
-    out[(((size_t)b * Ho + p) * Wo + q) * O + oc0 + ch] = (int8_t)qv;
+    unsigned char* dst = smem + W_OFF + (kk / 4) * W_KATOM + ng * W_GROUP;
+    const int chunk = 2 * (kk % 4) + h;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<uint4*>(dst + n * 128 + ((chunk ^ n) << 4)) = r[n];
   }
+  // the weights are read by wgmma (async proxy) after generic stores
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+
+  const unsigned w_addr = static_cast<unsigned>(__cvta_generic_to_shared(smem + W_OFF));
+  // descriptor: start >> 4, LBO 1 (unused when swizzled), SBO 1024 >> 4,
+  // layout 1 = 128-byte swizzle
+  const uint64_t desc = (uint64_t)(((w_addr + wg * (NH / 8) * W_GROUP) >> 4) & 0x3FFF) |
+                        (1ull << 16) | ((uint64_t)(W_GROUP >> 4) << 32) | (1ull << 62);
+  const unsigned p_base = static_cast<unsigned>(__cvta_generic_to_shared(smem + P_OFF));
+  const int c0 = wg * NH;  // this warpgroup's first channel in the group
+  if (wg == 1) named_arrive(3, 256);  // warpgroup 0 takes the first turn
+
+  // the epilogue's (bias, inv / 128) of this thread's 32 channels
+  float4 qr[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int ch = c0 + 8 * i + 2 * (lane & 3);
+    qr[i] = ch < og ? make_float4(bias[o0 + ch], inv[o0 + ch] * 0.0078125f, bias[o0 + ch + 1],
+                                  inv[o0 + ch + 1] * 0.0078125f)
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  for (int it = 0; item < items; item += gridDim.x, ++it) {
+    const int buf = it & 1;
+    cp_async_wait_all();
+    __syncthreads();  // this patch landed; every thread is done with the last tile
+    int b, p0, q0;
+    tile_origin(item, b, p0, q0);
+    int8_t* out_b = out + (size_t)b * Ho * Wo * O + o0;
+
+    // 5 row blocks of 64 positions x this warpgroup's 128 channels. The
+    // two warpgroups take turns on the tensor cores (named barriers 3 and
+    // 4): a warp stays in its wgmma issue until the products have read its
+    // A registers, so one warpgroup quantizes and pools block j while the
+    // other's products for block j run.
+    const unsigned pb = p_base + buf * BUF_BYTES;
+#pragma unroll
+    for (int j = 0; j < M_BLOCKS; ++j) {
+      uint32_t a[K_STEPS][4];
+      float acc[64];
+      load_a(a, pb + a_row_offset(j * 4 + wq, lane));
+      named_sync(3 + wg, 256);
+      issue_block(acc, a, desc);
+      named_arrive(3 + (wg ^ 1), 256);
+      // the next tile's patch flies while this one computes
+      if (j == 0 && item + (int)gridDim.x < items) stage(item + gridDim.x, buf ^ 1);
+      if (j == 0) cp_async_commit();
+      wgmma_wait_all();
+      epilogue(acc, Cs, qr, j, wq, lane, c0);
+      named_sync(1 + wg, 128);  // this warpgroup's C rows of block j are written
+      // pooled rows whose conv rows are now all in C
+      pool_rows(Cs, out_b, c0, og, pool_first(j), pool_first(j + 1), p0, q0, Hc, Wc, Ho, Wo, O,
+                tid & 127);
+    }
+  }
+  if (wg == 0) named_sync(3, 256);  // warpgroup 1's last turn hand-over
+  cp_async_wait_all();
 }
 
 __global__ void maxpool3x3s2_int8_kernel(const int8_t* __restrict__ x,
@@ -220,19 +522,36 @@ extern "C" int automoe_stem_s2d_pool_int8(const void* xs, const void* w,
                                           const void* bias, const void* inv,
                                           void* out, int B, int Hp, int Wp,
                                           int O, void* stream) {
-  if (B <= 0 || Hp <= 4 || Wp <= 4 || O <= 0 || O % OC != 0)
+  if (B <= 0 || Hp <= 4 || Wp <= 4 || O <= 0 || O % 64 != 0)
     return (int)cudaErrorInvalidValue;
   const int Hc = Hp - 4, Wc = Wp - 4;
   const int Ho = (Hc - 1) / 2 + 1, Wo = (Wc - 1) / 2 + 1;
-  cudaError_t e = cudaFuncSetAttribute(
-      s2d_stem_pool_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)STEM_SMEM);
+  // the shared-memory opt-in and the SM count, once per process and device
+  constexpr int MAX_DEV = 64;
+  static int sm_count[MAX_DEV];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Wo + TP_W - 1) / TP_W, (Ho + TP_H - 1) / TP_H, B * (O / OC));
+  if (dev >= MAX_DEV) return (int)cudaErrorInvalidDevice;
+  if (!sm_count[dev]) {
+    e = cudaFuncSetAttribute(s2d_stem_pool_int8_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, STEM_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    int n = 0;
+    e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    sm_count[dev] = n;
+  }
+  const long long items =
+      (long long)B * ((Ho + TP_H - 1) / TP_H) * ((Wo + TP_W - 1) / TP_W);
+  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int groups = (O + OG - 1) / OG;
+  const int per_group = sm_count[dev] / groups > 0 ? sm_count[dev] / groups : 1;
+  const dim3 grid((unsigned)(items < per_group ? items : per_group), groups);
   s2d_stem_pool_int8_kernel<<<grid, THREADS, STEM_SMEM, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(xs), static_cast<const __nv_bfloat16*>(w),
       static_cast<const float*>(bias), static_cast<const float*>(inv),
-      static_cast<int8_t*>(out), Hp, Wp, O, Ho, Wo);
+      static_cast<int8_t*>(out), B, Hp, Wp, O, Ho, Wo);
   return (int)cudaGetLastError();
 }
 

@@ -113,7 +113,8 @@ def s2d_stem_pool_int8_plain(xs: torch.Tensor, w: torch.Tensor,
 
 def s2d_stem_pool_int8(xs: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                        inv: torch.Tensor) -> torch.Tensor:
-    """K3 on CUDA (xs, w bf16; bias, inv f32), the plain version on the CPU."""
+    """K3 on CUDA (xs, w bf16; bias, inv f32 with inv >= 0, the inverse of a
+    quantization scale), the plain version on the CPU."""
     if xs.device.type == "cpu":
         return s2d_stem_pool_int8_plain(xs, w, bias, inv)
     _check_cuda("s2d_stem_pool_int8", xs, w, bias, inv)

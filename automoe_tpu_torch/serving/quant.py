@@ -245,6 +245,18 @@ def _space_to_depth(x: torch.Tensor) -> torch.Tensor:
     return xs.permute(0, 2, 4, 3, 5, 1).reshape(B, (H + 8) // 2, (W + 8) // 2, 4 * C)
 
 
+def s2d_stem_pool_unfused(xs: torch.Tensor, w_oihw: torch.Tensor, bias: torch.Tensor,
+                          inv: torch.Tensor) -> torch.Tensor:
+    """K3's function unfused (the "pool" stem variant): xs [B,Hc+4,Wc+4,12]
+    → conv + bias + ReLU in xs's dtype as torch ops, crop to [:Hc,:Wc],
+    quantize, then kernel K4 → [B,ceil(Hc/2),ceil(Wc/2),O] int8."""
+    hc, wc = xs.shape[1] - 4, xs.shape[2] - 4
+    h = F.conv2d(xs.permute(0, 3, 1, 2), w_oihw)[:, :, :hc, :wc]
+    h = torch.relu(h + bias[:, None, None])
+    hq = quantize_int8(h, inv[:, None, None])
+    return maxpool3x3s2_int8(hq.permute(0, 2, 3, 1).contiguous())
+
+
 class S2DStem:
     """All E float stems as ONE space-to-depth conv with int8 output,
     pooled. Built once from the quantized packs; called per step.
@@ -284,14 +296,10 @@ class S2DStem:
     def __call__(self, x: torch.Tensor, variant: str = "fused"):
         """x NCHW image → [(xq int8 [B,H/4,W/4,64] NHWC, si), ...] per expert."""
         xs = _space_to_depth(x.to(self.dtype))
-        _, H, W = x.shape[1:]
         if variant == "fused":
             hq = s2d_stem_pool_int8(xs, self.wmat, self.bias_f32, self.inv)
         elif variant == "pool":
-            h = F.conv2d(xs.permute(0, 3, 1, 2), self.w_oihw)[:, :, : H // 2, : W // 2]
-            h = torch.relu(h + self.bias_dt[:, None, None])
-            hq = quantize_int8(h, self.inv[:, None, None])
-            hq = maxpool3x3s2_int8(hq.permute(0, 2, 3, 1).contiguous())
+            hq = s2d_stem_pool_unfused(xs, self.w_oihw, self.bias_dt, self.inv)
         else:
             raise ValueError(f"unknown stem variant {variant!r}")
         C = self.channels

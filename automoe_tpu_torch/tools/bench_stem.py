@@ -1,0 +1,142 @@
+"""K3 alone on the GPU: one or more builds of csrc/stem.cu, timed side by side.
+
+    python -m automoe_tpu_torch.tools.bench_stem [--against OTHER/stem.cu ...]
+        [--batch 8 128]
+
+Compiles the package's csrc/stem.cu and every `--against` source (each
+must export the same C entry point, automoe_stem_s2d_pool_int8) with the
+package's nvcc flags plus `-Xptxas -v`, all at once, and prints ptxas's
+registers, spill bytes and static shared memory of each build's K3
+kernel. Then, for each batch (256x256 input, O = 256, seeded inputs), it
+holds every build against the plain version (ops/stem.py) and times its
+entry point launched back to back on the same pre-built inputs: five
+blocks of 50 launches, the builds interleaved block by block (the order
+reversed every other round), the median block per build. Prints
+JSON lines, the card's name and power limit first.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import re
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+
+SEED, BLOCKS, ITERS = 0, 5, 50
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+
+
+def ptxas_usage(log: str, kernel: str = "s2d_stem_pool_int8_kernel") -> Dict[str, int]:
+    """Registers, stack and spill bytes and static shared memory of `kernel`
+    from nvcc's `-Xptxas -v` output."""
+    chunks = _ENTRY.split(log)
+    for name, body in zip(chunks[1::2], chunks[2::2]):
+        if kernel not in name:
+            continue
+        usage = {"regs": None, "stack_bytes": 0, "spill_store_bytes": 0,
+                 "spill_load_bytes": 0, "static_smem_bytes": 0}
+        m = _SPILL.search(body)
+        if m:
+            usage.update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]),
+                         spill_load_bytes=int(m[3]))
+        m = _REGS.search(body)
+        if m:
+            usage["regs"] = int(m[1])
+            usage["static_smem_bytes"] = int(m[2] or 0)
+        return usage
+    raise ValueError(f"no ptxas report for {kernel}")
+
+
+def _build(src: Path, out_dir: Path):
+    from automoe_tpu_torch.ops._ext import NVCC_FLAGS, nvcc_path
+
+    flags = NVCC_FLAGS + ["-Xptxas", "-v"]
+    digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
+    out = out_dir / f"stem_{digest}.so"
+    res = subprocess.run([nvcc_path(), *flags, "-o", str(out), str(src)],
+                         capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}\n{res.stderr}")
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.automoe_stem_s2d_pool_int8.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.automoe_stem_s2d_pool_int8.restype = i
+    return lib, ptxas_usage(res.stdout + res.stderr)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--against", action="append", default=[], type=Path,
+                   help="another stem.cu to time beside the package's")
+    p.add_argument("--batch", type=int, nargs="+", default=[8, 128])
+    args = p.parse_args(argv)
+
+    import torch
+
+    from automoe_tpu_torch.ops import stem
+    from automoe_tpu_torch.ops._ext import BUILD_DIR
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(json.dumps({"card": smi}), flush=True)
+    sources = [Path(stem.__file__).resolve().parents[1] / "csrc" / "stem.cu", *args.against]
+    out_dir = BUILD_DIR.parent / "bench_stem"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        built = list(pool.map(lambda s: _build(s, out_dir), sources))
+    for src, (_, usage) in zip(sources, built):
+        print(json.dumps({"source": str(src), "ptxas": usage}), flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    stream = torch.cuda.current_stream().cuda_stream
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for B in args.batch:
+        xs = torch.randn(B, 132, 132, 12, device="cuda", generator=gen).bfloat16()
+        w = (torch.randn(192, 256, device="cuda", generator=gen) * 0.05).bfloat16()
+        bias = torch.randn(256, device="cuda", generator=gen) * 0.1
+        inv = 127.0 / (torch.rand(256, device="cuda", generator=gen) * 4 + 1)
+        ref = stem.s2d_stem_pool_int8_plain(xs, w, bias, inv)
+        outs = [torch.empty_like(ref) for _ in built]
+
+        def launch(k: int) -> None:
+            stem.raise_on(built[k][0].automoe_stem_s2d_pool_int8(
+                xs.data_ptr(), w.data_ptr(), bias.data_ptr(), inv.data_ptr(),
+                outs[k].data_ptr(), B, 132, 132, 256, stream), "s2d_stem_pool_int8")
+
+        errs = []
+        for k in range(len(built)):
+            launch(k)
+            torch.cuda.synchronize()
+            d = (outs[k].int() - ref.int()).abs()
+            errs.append((int(d.max()), float((d > 0).float().mean())))
+            for _ in range(3):
+                launch(k)
+        blocks = [[] for _ in built]
+        for r in range(BLOCKS):
+            order = range(len(built)) if r % 2 == 0 else reversed(range(len(built)))
+            for k in order:
+                torch.cuda.synchronize()
+                start.record()
+                for _ in range(ITERS):
+                    launch(k)
+                end.record()
+                end.synchronize()
+                blocks[k].append(start.elapsed_time(end) / ITERS)
+        for k, src in enumerate(sources):
+            print(json.dumps({"batch": B, "source": str(src), "ms": float(np.median(blocks[k])),
+                              "ms_blocks": blocks[k], "max_abs_err": errs[k][0],
+                              "diff_frac": errs[k][1]}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

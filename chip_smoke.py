@@ -8,7 +8,11 @@ Phases, each of which must pass (none is caught):
      source, all started together (stem.cu timed here, auction.cu in 8);
   2. K3, the fused int8 stem kernel, against its plain PyTorch version
      at B=8 and B=128, 256x256 input: int8 outputs within ±1 on at most
-     0.1% of elements; times from CUDA events;
+     0.1% of elements; the kernel's time alone (back-to-back launches of
+     the library's entry point, three blocks of 50) and through its
+     wrapper, beside the plain version and the unfused "pool"-variant
+     path (serving/quant.py::s2d_stem_pool_unfused: cuDNN conv, quantize,
+     K4) at the same shapes;
   3. K4, the int8 3x3/s2 pool kernel, against its plain version at
      [8,128,128,256] and [128,128,128,256]: bit-exact; times;
   4. the f32 engine on the card against the same engine on the CPU, on a
@@ -118,8 +122,36 @@ def stem_inputs(B: int, gen):
     return xs, w, bias, inv
 
 
-def phase_k3(stem, gen):
+def stem_kernel_ms(stem, xs, w, bias, inv, blocks: int = 3, iters: int = 50) -> list:
+    """K3 alone: the library's entry point launched back to back on pre-built
+    inputs (no wrapper checks, no launch count), CUDA events around each
+    block of `iters` launches; the mean of each block."""
     import torch
+
+    lib = stem.build()
+    B, hp, wp, _ = xs.shape
+    O = w.shape[1]
+    out = torch.empty((B, *stem.pool_out_hw(hp - 4, wp - 4), O), dtype=torch.int8,
+                      device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        stem.raise_on(lib.automoe_stem_s2d_pool_int8(
+            xs.data_ptr(), w.data_ptr(), bias.data_ptr(), inv.data_ptr(), out.data_ptr(),
+            B, hp, wp, O, stream), "s2d_stem_pool_int8")
+
+    return [cuda_ms(launch, iters=iters) for _ in range(blocks)]
+
+
+def phase_k3(stem, gen):
+    """K3 against its plain version at B=8 and B=128: int8 outputs within
+    ±1 on at most 0.1% of elements. Times: the kernel alone (three blocks
+    of 50 back-to-back launches, the median block), its wrapper (median of
+    30 calls, one event pair each), the plain version (mean of 5) and the
+    unfused "pool"-variant path (three blocks of 20, the median block)."""
+    import torch
+
+    from automoe_tpu_torch.serving.quant import s2d_stem_pool_unfused
 
     res = {}
     for B in (B_MAIN, 128):
@@ -133,9 +165,18 @@ def phase_k3(stem, gen):
         assert max_err <= 1 and frac <= 1e-3, (B, max_err, frac)
         flops = 2.0 * B * 128 * 128 * 192 * 256
         b_ms, b_by = bound(flops, PEAK_BF16_FLOPS, nbytes(*args, out))
+        xs, w, bias, inv = args
+        unfused = (xs, w.reshape(4, 4, 12, -1).permute(3, 2, 0, 1).contiguous(),
+                   bias.bfloat16(), inv)
+        blocks = stem_kernel_ms(stem, *args)
         res[B] = dict(max_abs_err=max_err, diff_frac=frac,
-                      ms=cuda_ms(lambda: stem.s2d_stem_pool_int8(*args)),
+                      ms=float(np.median(blocks)), ms_blocks=blocks,
+                      wrapper_ms=cuda_ms_median(lambda: stem.s2d_stem_pool_int8(*args),
+                                                iters=30),
                       plain_ms=cuda_ms(lambda: stem.s2d_stem_pool_int8_plain(*args), 5),
+                      unfused_ms=float(np.median(
+                          [cuda_ms(lambda: s2d_stem_pool_unfused(*unfused), iters=20)
+                           for _ in range(3)])),
                       bound_ms=b_ms, bound_by=b_by)
         print(f"K3 B={B}: {res[B]}", flush=True)
     return res
@@ -505,25 +546,36 @@ def main() -> int:
     launches["auction_solve"] = train_cli["finetune-carla"]["launches"]
 
     src = "automoe_tpu_torch/csrc/stem.cu"
-    kernels = []
-    for name, res, replaces in (
-        ("s2d_stem_pool_int8", k3, "automoe_tpu/ops/pallas_stem.py:103"),
-        ("maxpool3x3s2_int8", k4, "automoe_tpu/ops/pallas_stem.py:149"),
-    ):
-        main_, big = res[B_MAIN], res[128]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": main_["max_abs_err"],
-            "diff_frac": main_["diff_frac"], "ms": main_["ms"],
-            "plain_ms": main_["plain_ms"], "bound_ms": main_["bound_ms"],
-            "bound_by": main_["bound_by"],
-            # no single PyTorch call computes either function (K3 is conv +
-            # bias + ReLU + quantize + pool; CUDA max_pool2d has no int8)
-            "library_ms": None,
-            "shape_batch": B_MAIN,
-            "b128": {k: big[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "max_abs_err", "diff_frac")},
-        })
+    main_, big = k3[B_MAIN], k3[128]
+    kernels = [{
+        "name": "s2d_stem_pool_int8", "route": "cuda", "source": src,
+        "replaces": "automoe_tpu/ops/pallas_stem.py:103",
+        "launches": launches["s2d_stem_pool_int8"], "max_abs_err": main_["max_abs_err"],
+        "diff_frac": main_["diff_frac"], "ms": main_["ms"], "plain_ms": main_["plain_ms"],
+        "bound_ms": main_["bound_ms"], "bound_by": main_["bound_by"],
+        # no single PyTorch call computes conv + bias + ReLU + quantize + pool
+        "library_ms": None,
+        "unfused_ms": main_["unfused_ms"],
+        "unfused_is": "not a library call: cuDNN conv, bias + ReLU, quantize, K4 "
+                      "(the \"pool\" stem variant's path)",
+        "shape_batch": B_MAIN, "ms_blocks": main_["ms_blocks"],
+        "wrapper_ms": main_["wrapper_ms"],
+        "b128": {k: big[k] for k in ("ms", "ms_blocks", "wrapper_ms", "plain_ms", "unfused_ms",
+                                     "bound_ms", "max_abs_err", "diff_frac")},
+    }]
+    main_, big = k4[B_MAIN], k4[128]
+    kernels.append({
+        "name": "maxpool3x3s2_int8", "route": "cuda", "source": src,
+        "replaces": "automoe_tpu/ops/pallas_stem.py:149",
+        "launches": launches["maxpool3x3s2_int8"], "max_abs_err": main_["max_abs_err"],
+        "diff_frac": main_["diff_frac"], "ms": main_["ms"],
+        "plain_ms": main_["plain_ms"], "bound_ms": main_["bound_ms"],
+        "bound_by": main_["bound_by"],
+        # CUDA max_pool2d has no int8 kernel
+        "library_ms": None,
+        "shape_batch": B_MAIN,
+        "b128": {k: big[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err", "diff_frac")},
+    })
     div = k12["diverse"]
     kernels.append({
         "name": "auction_solve", "route": "cuda",

@@ -22,20 +22,52 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("B,H,W", [(2, 64, 64), (3, 40, 72)])
-def test_stem_kernel_matches_plain(gen, B, H, W):
+def _stem_inputs(gen, B, H, W, O=256, zero_inv=False):
+    """s2d input for an HxW image, [192,O] weights, bias and inv on the card;
+    with zero_inv every third inv is 0 (the kernel takes inv >= 0)."""
+    xs = torch.randn(B, H // 2 + 4, W // 2 + 4, 12, device="cuda", generator=gen).bfloat16()
+    w = (torch.randn(192, O, device="cuda", generator=gen) * 0.05).bfloat16()
+    bias = torch.randn(O, device="cuda", generator=gen) * 0.1
+    inv = 127.0 / (torch.rand(O, device="cuda", generator=gen) * 4 + 1)
+    if zero_inv:
+        inv[::3] = 0
+    return xs, w, bias, inv
+
+
+@pytest.mark.parametrize("B,H,W,O,zero_inv", [
+    pytest.param(2, 64, 64, 256, False, id="2-64-64"),
+    pytest.param(3, 40, 72, 256, False, id="3-40-72"),
+    pytest.param(1, 64, 64, 64, False, id="B1-one-expert"),
+    pytest.param(2, 50, 86, 128, False, id="conv-25x43-not-tile-multiples"),
+    pytest.param(2, 34, 18, 192, False, id="conv-17x9-O192"),
+    pytest.param(1, 256, 256, 256, False, id="B1-full-132x132"),
+    pytest.param(3, 256, 256, 64, False, id="full-192-tiles-blocks-loop"),
+    pytest.param(3, 256, 256, 256, False, id="full-O256-blocks-loop"),
+    pytest.param(2, 64, 64, 320, False, id="O320-two-channel-groups"),
+    pytest.param(2, 64, 64, 256, True, id="zero-inv"),
+])
+def test_stem_kernel_matches_plain(gen, B, H, W, O, zero_inv):
     from automoe_tpu_torch.ops import stem
 
-    xs = torch.randn(B, H // 2 + 4, W // 2 + 4, 12, device="cuda", generator=gen).bfloat16()
-    w = (torch.randn(192, 256, device="cuda", generator=gen) * 0.05).bfloat16()
-    bias = torch.randn(256, device="cuda", generator=gen) * 0.1
-    inv = 127.0 / (torch.rand(256, device="cuda", generator=gen) * 4 + 1)
+    xs, w, bias, inv = _stem_inputs(gen, B, H, W, O, zero_inv)
     n = stem.LAUNCHES["s2d_stem_pool_int8"]
     out = stem.s2d_stem_pool_int8(xs, w, bias, inv)
     torch.cuda.synchronize()
     assert stem.LAUNCHES["s2d_stem_pool_int8"] == n + 1
     d = (out.int() - stem.s2d_stem_pool_int8_plain(xs, w, bias, inv).int()).abs()
     assert d.max() <= 1 and (d > 0).float().mean() <= 1e-3
+
+
+def test_stem_kernel_is_deterministic(gen):
+    """Two calls in one process give identical outputs: the shared-memory
+    opt-in is taken once and the persistent loop's order is fixed."""
+    from automoe_tpu_torch.ops import stem
+
+    args = _stem_inputs(gen, 3, 256, 256)
+    first = stem.s2d_stem_pool_int8(*args)
+    second = stem.s2d_stem_pool_int8(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("shape", [(2, 32, 32, 128), (3, 33, 17, 32)])
