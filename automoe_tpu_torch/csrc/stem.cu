@@ -48,18 +48,23 @@
 //       tensor cores (named barriers): one quantizes and pools block j
 //       while the other's products for block j run.
 //     - Epilogue, per conv position in registers: y = s + bias, then
-//       clip(rint(relu(y) * inv), 127) (the plain version's order) in
-//       three FP32 operations (see epilogue), as bytes into a shared C
-//       tile (289 x 256). It needs inv >= 0, which a quantization scale's
-//       inverse is; the plain version also takes a negative inv.
+//       clip(rint(relu(y) * |inv|), 127) in three FP32 operations (see
+//       epilogue), as bytes into a shared C tile (289 x 256).
+//     - Sign of inv: the JAX kernel pools the f32 values, then quantizes,
+//       q(max h * inv). Quantizing first and pooling the bytes gives the
+//       same for inv >= 0 (q is monotone); for inv < 0 the kernel pools
+//       q(h * |inv|) and negates the pooled byte: round half to even and
+//       the clip are odd-symmetric, so -max q(h |inv|) = q(max h * inv).
+//       A 256-bit map of the negative channels, made once per block,
+//       selects the bytes to negate at the store (__vsub4(x ^ m, m)).
 //     - Pool: after each row block, the pooled rows whose three conv rows
 //       are all in C are reduced with max.u16x2 (two bytes per 16-bit
 //       lane, see pool_rows), 16 channels per thread, 16-byte stores.
 //       Conv positions outside [0,Hc)x[0,Wc) are excluded (their taps
 //       repeat an in-window one), not zero-filled.
 //     - Shared memory: weights 98,304 + C 320 x 272 = 87,040 + two patch
-//       buffers of 19,328 (both copies) + 1,024 of alignment slack =
-//       225,024 bytes of the 232,448 a block may use. cudaFuncSetAttribute and the SM count are taken once per
+//       buffers of 19,328 (both copies) + 128 for the sign map + 1,024 of
+//       alignment slack = 225,152 bytes of the 232,448 a block may use. cudaFuncSetAttribute and the SM count are taken once per
 //       process and device.
 //     Tile choice: at B=8 there are 8 * 4096 / A items for a pooled tile
 //     of area A, and at least 4 per SM (528) needs A <= 62. A tile's conv
@@ -194,7 +199,8 @@ constexpr int BUF_BYTES = (Q1 + PATCH_BYTES - 8 + 127) / 128 * 128;  // 19,328
 constexpr int W_OFF = 0;
 constexpr int C_OFF = W_OFF + K_STEPS / 4 * W_KATOM;                // 98,304
 constexpr int P_OFF = C_OFF + M_BLOCKS * 64 * LDC;                  // 185,344
-constexpr int STEM_SMEM = P_OFF + 2 * BUF_BYTES + 1024;  // 225,024 with the alignment slack
+constexpr int S_OFF = P_OFF + 2 * BUF_BYTES;                        // 224,000: inv's sign map
+constexpr int STEM_SMEM = S_OFF + 128 + 1024;  // 225,152 with the alignment slack
 static_assert(PATCH_BYTES % 128 == 0 && C_OFF % 128 == 0 && P_OFF % 128 == 0,
               "shared regions must stay 128-byte aligned");
 static_assert(STEM_SMEM <= 232448, "over the 227 KB a block may use");
@@ -257,15 +263,14 @@ __device__ __forceinline__ void store_c(unsigned char* row, int i0, const uint32
                       __byte_perm(v[u + 1][2 * hr], v[u + 1][2 * hr + 1], 0x0040), 0x5410);
 }
 
-// Bias, ReLU, rint(v * inv) clipped to 127 per conv position, as bytes into
-// C, in three FP32 operations for inv >= 0 (inv is the inverse of a
-// quantization scale): y = s + bias; u = sat(y * inv / 128), which is
-// clamp(relu(y) * inv, 0, 128) / 128 exactly (a power-of-two scale does not
+// Bias, ReLU, rint(v * |inv|) clipped to 127 per conv position, as bytes
+// into C, in three FP32 operations: y = s + bias; u = sat(y * |inv| / 128),
+// which is clamp(relu(y) * |inv|, 0, 128) / 128 exactly (a power-of-two scale does not
 // change the rounding); then u * 128 + 1.5 * 2^23 rounds it half to even
 // (as rintf, torch.round and jnp.round do) and leaves the integer (0..128;
 // the pool clips 128 to 127) in the low byte of the sum's bits. Thread
 // (g, t) of warp wq holds rows 16 wq + g (+8) of the block and channels
-// 8i + 2t (+1) of its warpgroup's 128; qr[i] holds (bias, inv / 128) of
+// 8i + 2t (+1) of its warpgroup's 128; qr[i] holds (bias, |inv| / 128) of
 // channels 8i + 2t and 8i + 2t + 1. Rows past M_VALID land in C's padding.
 __device__ __forceinline__ float mul_sat(float a, float b) {
   float r;
@@ -323,10 +328,23 @@ static_assert(pool_first(0) == 0 && pool_first(M_BLOCKS) == TP_H, "pool rows mus
 // then 128 becomes 127. A tap outside
 // [0,Hc)x[0,Wc) is clamped onto the window's edge, which is inside the
 // window too (and inside the tile's C rows even where p >= Ho), so it
-// repeats a value instead of adding one.
-__device__ __forceinline__ void pool_rows(const unsigned char* Cs, int8_t* out_b, int c0, int og,
-                                          int pr0, int pr1, int p0, int q0, int Hc, int Wc,
-                                          int Ho, int Wo, int O, int t128) {
+// repeats a value instead of adding one. A thread's 16 channels are the
+// same in every iteration; the bytes of those whose inv is negative are
+// negated at the store (sgn: the block's sign map, one bit a channel).
+__device__ __forceinline__ void pool_rows(const unsigned char* Cs, const uint32_t* sgn,
+                                          int8_t* out_b, int c0, int og, int pr0, int pr1,
+                                          int p0, int q0, int Hc, int Wc, int Ho, int Wo, int O,
+                                          int t128) {
+  uint4 neg;  // 0xFF in the bytes of negative-inv channels
+  {
+    const int ch = c0 + (t128 % (NH / 16)) * 16;
+    const uint32_t bits = sgn[ch >> 5] >> (ch & 31);
+    uint32_t m[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)  // bit k of the nibble to byte k
+      m[j] = (((bits >> (4 * j)) & 0xFu) * 0x00204081u & 0x01010101u) * 0xFFu;
+    neg = make_uint4(m[0], m[1], m[2], m[3]);
+  }
   for (int i = t128; i < (pr1 - pr0) * TP_W * (NH / 16); i += 128) {
     const int gi = i % (NH / 16), pl = i / (NH / 16);
     const int p = p0 + pr0 + pl / TP_W, q = q0 + pl % TP_W;
@@ -355,9 +373,12 @@ __device__ __forceinline__ void pool_rows(const unsigned char* Cs, int8_t* out_b
       r[j] = __byte_perm(ev[j], od[j], 0x7351);
       r[j] -= (r[j] >> 7) & 0x01010101u;
     }
-    if (p < Ho && q < Wo && ch < og)
-      *reinterpret_cast<uint4*>(out_b + ((size_t)p * Wo + q) * O + ch) =
-          unpermute(r[0], r[1], r[2], r[3]);
+    if (p < Ho && q < Wo && ch < og) {
+      uint4 o = unpermute(r[0], r[1], r[2], r[3]);
+      o = make_uint4(__vsub4(o.x ^ neg.x, neg.x), __vsub4(o.y ^ neg.y, neg.y),
+                     __vsub4(o.z ^ neg.z, neg.z), __vsub4(o.w ^ neg.w, neg.w));
+      *reinterpret_cast<uint4*>(out_b + ((size_t)p * Wo + q) * O + ch) = o;
+    }
   }
 }
 
@@ -439,14 +460,21 @@ s2d_stem_pool_int8_kernel(const __nv_bfloat16* __restrict__ xs,
   const int c0 = wg * NH;  // this warpgroup's first channel in the group
   if (wg == 1) named_arrive(3, 256);  // warpgroup 0 takes the first turn
 
-  // the epilogue's (bias, inv / 128) of this thread's 32 channels
+  // the epilogue's (bias, |inv| / 128) of this thread's 32 channels
   float4 qr[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     const int ch = c0 + 8 * i + 2 * (lane & 3);
-    qr[i] = ch < og ? make_float4(bias[o0 + ch], inv[o0 + ch] * 0.0078125f, bias[o0 + ch + 1],
-                                  inv[o0 + ch + 1] * 0.0078125f)
+    qr[i] = ch < og ? make_float4(bias[o0 + ch], fabsf(inv[o0 + ch]) * 0.0078125f,
+                                  bias[o0 + ch + 1], fabsf(inv[o0 + ch + 1]) * 0.0078125f)
                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  // the sign map: warp w's ballot covers channels 32w..32w+31 of the group
+  // (seen by every thread after the tile loop's first barrier)
+  uint32_t* sgn = reinterpret_cast<uint32_t*>(smem + S_OFF);
+  {
+    const unsigned b = __ballot_sync(0xffffffffu, tid < og && inv[o0 + tid] < 0.0f);
+    if (lane == 0) sgn[warp] = b;
   }
   for (int it = 0; item < items; item += gridDim.x, ++it) {
     const int buf = it & 1;
@@ -477,8 +505,8 @@ s2d_stem_pool_int8_kernel(const __nv_bfloat16* __restrict__ xs,
       epilogue(acc, Cs, qr, j, wq, lane, c0);
       named_sync(1 + wg, 128);  // this warpgroup's C rows of block j are written
       // pooled rows whose conv rows are now all in C
-      pool_rows(Cs, out_b, c0, og, pool_first(j), pool_first(j + 1), p0, q0, Hc, Wc, Ho, Wo, O,
-                tid & 127);
+      pool_rows(Cs, sgn, out_b, c0, og, pool_first(j), pool_first(j + 1), p0, q0, Hc, Wc, Ho,
+                Wo, O, tid & 127);
     }
   }
   if (wg == 0) named_sync(3, 256);  // warpgroup 1's last turn hand-over

@@ -4,10 +4,12 @@ hand-written CUDA kernel (csrc/auction.cu), and its plain version.
 Port of automoe_tpu/ops/pallas_auction.py: K1 `_auction_kernel` (the
 single-phase forward auction, one batch element per program) and K2
 `_jv_exact` (exact JV from scratch for an element still unconverged at
-the iteration cap), which runs inside K1's launch.
+the iteration cap), which runs inside K1's launch; with escalate=False,
+K1's greedy completion takes K2's place.
 
-`auction_solve(benefit, valid, eps, max_iters=...)` launches the kernel on
-a CUDA tensor (or raises) and runs `auction_solve_plain` on a CPU tensor.
+`auction_solve(benefit, valid, eps, max_iters=..., escalate=...)` launches
+the kernel on a CUDA tensor (or raises) and runs `auction_solve_plain` on a
+CPU tensor.
 The plain version is a literal transcription of the JAX kernel, vector ops
 over the batch, with the f32 operations in the JAX order: kernel and plain
 version return identical assignments on identical inputs.
@@ -37,7 +39,7 @@ def reset_launch_counts() -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.automoe_auction_solve.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.automoe_auction_solve.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.automoe_auction_solve.restype = i
     lib.automoe_auction_smem_bytes.argtypes = [i, i]
     lib.automoe_auction_smem_bytes.restype = i
@@ -68,7 +70,7 @@ def auction_phase_plain(benefit, valid, eps, max_iters):
     """K1's forward auction alone (pallas_auction.py:169-217), over the
     batch: an element stops once every valid row is assigned, all stop at
     max_iters. Returns person_obj [B,N] (-1: unassigned, the rows JV then
-    solves)."""
+    solves) and the rounds each element ran [B]."""
     B, N, Q = benefit.shape
     dev = benefit.device
     iota_q = torch.arange(Q, device=dev)
@@ -77,10 +79,12 @@ def auction_phase_plain(benefit, valid, eps, max_iters):
     price = torch.zeros(B, 1, Q, dtype=torch.float32, device=dev)
     person_obj = torch.full((B, N, 1), -1, dtype=torch.int32, device=dev)
     valid3 = valid[..., None]
+    rounds = torch.zeros(B, dtype=torch.int64, device=dev)
     for _ in range(max_iters):
         active = ((person_obj < 0) & valid3).any(1)[:, :, None]  # [B,1,1]
         if not bool(active.any()):
             break
+        rounds += active[:, 0, 0]
         values = benefit - price
         v1 = values.max(2, keepdim=True).values
         best_j = torch.where(values >= v1, iota_q, Q).min(2, keepdim=True).values
@@ -101,13 +105,14 @@ def auction_phase_plain(benefit, valid, eps, max_iters):
         po = torch.where(new_assign >= 0, new_assign, po).int()
         price = torch.where(active, new_price, price)
         person_obj = torch.where(active, po, person_obj)
-    return person_obj[..., 0]
+    return person_obj[..., 0], rounds
 
 
 def _jv_plain(cost, valid):
     """Exact Jonker-Volgenant from scratch (pallas_auction.py:39-154), one
     element per row of the batch: cost [E,N,Q] (minimize), valid [E,N] →
-    person_obj [E,N] (-1 where unassigned)."""
+    person_obj [E,N] (-1 where unassigned) and the Dijkstra scans each
+    element ran [E]."""
     E, N, Q = cost.shape
     dev = cost.device
     f32, i32 = torch.float32, torch.int32
@@ -117,6 +122,7 @@ def _jv_plain(cost, valid):
     v = torch.zeros(E, Q, dtype=f32, device=dev)
     owner = torch.full((E, Q), -1, dtype=i32, device=dev)
     inf = torch.tensor(_INF, dtype=f32, device=dev)
+    scans = torch.zeros(E, dtype=torch.int64, device=dev)
     for i in range(N):
         run = valid[:, i] & (owner < 0).any(1)
         if not bool(run.any()):
@@ -160,6 +166,7 @@ def _jv_plain(cost, valid):
             u_, v_ = torch.where(a, u_n, u_), torch.where(a, v_n, v_)
             j0, found = torch.where(act, j1, j0), torch.where(act, found_n, found)
             it = it + act.int()
+        scans += it
         # augment: walk predecessors from the free column to the start row
         own2, j = owner, j0
         done = torch.zeros(E, dtype=i32, device=dev)
@@ -178,20 +185,58 @@ def _jv_plain(cost, valid):
         r = run[:, None]
         u, v, owner = torch.where(r, u_, u), torch.where(r, v_, v), torch.where(r, own2, owner)
     hit = iota_n[None, :, None] == owner[:, None, :]
-    return torch.where(hit, iota_q, -1).max(2).values.int()
+    return torch.where(hit, iota_q, -1).max(2).values.int(), scans
+
+
+def greedy_complete_plain(benefit, valid, person_obj):
+    """K1's escalate=False branch (pallas_auction.py:251-275), over the
+    batch: rows left unassigned, in row order, take their best free object
+    (benefit floored at NEG, first column of the max) if it is above NEG/2."""
+    B, N, Q = benefit.shape
+    iota_q = torch.arange(Q, device=benefit.device)
+    neg = torch.tensor(_NEG, dtype=torch.float32, device=benefit.device)
+    taken = ((iota_q == person_obj[..., None]) & (person_obj[..., None] >= 0)).any(1)
+    person_obj = person_obj.clone()
+    for n in range(N):
+        needs = (person_obj[:, n] < 0) & valid[:, n]
+        vals = torch.where(taken, neg, torch.maximum(benefit[:, n], neg))
+        vmax = vals.max(1).values
+        best = torch.where(vals >= vmax[:, None], iota_q, Q).min(1).values
+        assign = needs & (vmax > _NEG * 0.5)
+        person_obj[:, n] = torch.where(assign, best.int(), person_obj[:, n])
+        taken = taken | (assign[:, None] & (iota_q == best[:, None]))
+    return person_obj
+
+
+def _solve_plain(benefit, valid, eps, max_iters, escalate):
+    """(person_obj [B,N], auction rounds [B], escalated [B] bool, JV scans
+    [B], 0 where no JV ran)."""
+    person_obj, rounds = auction_phase_plain(benefit, valid, eps, max_iters)
+    unconverged = ((person_obj < 0) & valid).any(1)
+    scans = torch.zeros_like(rounds)
+    if not escalate:
+        person_obj = greedy_complete_plain(benefit, valid, person_obj)
+    elif bool(unconverged.any()):
+        idx = unconverged.nonzero()[:, 0]
+        person_obj = person_obj.clone()
+        person_obj[idx], scans[idx] = _jv_plain(-benefit[idx], valid[idx])
+    return person_obj, rounds, unconverged, scans
 
 
 def auction_solve_plain(benefit: torch.Tensor, valid: torch.Tensor, eps: torch.Tensor,
-                        *, max_iters: int = 1000) -> torch.Tensor:
+                        *, max_iters: int = 1000, escalate: bool = True) -> torch.Tensor:
     """K1 + K2 in PyTorch ops: benefit [B,N,Q] f32 (maximize, invalid rows
-    already 0), valid [B,N] bool, eps [B] f32 → [B,N] int32."""
-    person_obj = auction_phase_plain(benefit, valid, eps, max_iters)
-    unconverged = ((person_obj < 0) & valid).any(1)
-    if bool(unconverged.any()):
-        idx = unconverged.nonzero()[:, 0]
-        person_obj = person_obj.clone()
-        person_obj[idx] = _jv_plain(-benefit[idx], valid[idx])
-    return person_obj
+    already 0), valid [B,N] bool, eps [B] f32 → [B,N] int32. escalate=False:
+    the greedy completion instead of JV."""
+    return _solve_plain(benefit, valid, eps, max_iters, escalate)[0]
+
+
+def auction_counts_plain(benefit, valid, eps, max_iters):
+    """The loop counts the kernel's time follows, from the plain version:
+    auction rounds per element [B], the elements escalated [B] bool, and
+    the Dijkstra scans of each escalated element's JV [B] (0 elsewhere)."""
+    _, rounds, escalated, scans = _solve_plain(benefit, valid, eps, max_iters, True)
+    return {"rounds": rounds, "escalated": escalated, "jv_scans": scans}
 
 
 # ---------------------------------------------------------------------------
@@ -208,18 +253,20 @@ def _q1(benefit: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def auction_solve(benefit: torch.Tensor, valid: torch.Tensor, eps: torch.Tensor,
-                  *, max_iters: int = 1000) -> torch.Tensor:
+                  *, max_iters: int = 1000, escalate: bool = True) -> torch.Tensor:
     """benefit [B,N,Q] f32, valid [B,N] bool, eps [B] f32 → [B,N] int32
     (the object of each row, -1 where unassigned). The kernel on CUDA, the
     plain version on the CPU; the Q == 1 shortcut and the masking of
-    invalid rows to 0 as auction_solve_pallas does them."""
+    invalid rows to 0 as auction_solve_pallas does them. escalate=False
+    completes an unconverged element greedily instead of by JV."""
     B, N, Q = benefit.shape
     if Q == 1:
         return _q1(benefit, valid)
     benefit = torch.where(valid[..., None], benefit, torch.zeros_like(benefit)).float()
     eps = eps.reshape(B).float()
     if benefit.device.type == "cpu":
-        return auction_solve_plain(benefit, valid, eps, max_iters=max_iters)
+        return auction_solve_plain(benefit, valid, eps, max_iters=max_iters,
+                                   escalate=escalate)
     benefit = benefit.contiguous()
     valid_i = valid.to(torch.int32).contiguous()
     eps = eps.contiguous()
@@ -234,7 +281,8 @@ def auction_solve(benefit: torch.Tensor, valid: torch.Tensor, eps: torch.Tensor,
         return out
     err = lib.automoe_auction_solve(
         benefit.data_ptr(), valid_i.data_ptr(), eps.data_ptr(), out.data_ptr(),
-        B, N, Q, int(max_iters), torch.cuda.current_stream(benefit.device).cuda_stream,
+        B, N, Q, int(max_iters), int(escalate),
+        torch.cuda.current_stream(benefit.device).cuda_stream,
     )
     raise_on(err, "auction_solve")
     LAUNCHES["auction_solve"] += 1

@@ -100,21 +100,23 @@ def quantize_int8(h: torch.Tensor, inv) -> torch.Tensor:
 def s2d_stem_pool_int8_plain(xs: torch.Tensor, w: torch.Tensor,
                              bias: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     """xs [B,Hc+4,Wc+4,12], w [192,O] (row (a*4+b)*12+c), bias/inv [O] f32
-    → [B,ceil(Hc/2),ceil(Wc/2),O] int8. The conv runs in f32 on the
-    (bf16-exact) inputs: F.conv2d, crop to [:Hc,:Wc], bias, ReLU,
-    quantize, then the 3x3/s2 max-pool."""
+    → [B,ceil(Hc/2),ceil(Wc/2),O] int8. In the order of the JAX kernel
+    (pallas_stem.py::_stem_kernel): the conv in f32 on the (bf16-exact)
+    inputs (F.conv2d, crop to [:Hc,:Wc]), bias, ReLU, the 3x3/s2 SAME
+    max-pool of the f32 values (its -inf padding never wins: they are
+    >= 0), then quantize. For any sign of inv."""
     B, hp, wp, cin = xs.shape
     k = w.float().reshape(4, 4, cin, -1).permute(3, 2, 0, 1)  # OIHW
     h = F.conv2d(xs.float().permute(0, 3, 1, 2), k)[:, :, : hp - 4, : wp - 4]
     h = torch.relu(h + bias.float()[:, None, None])
-    hq = quantize_int8(h, inv.float()[:, None, None])
-    return maxpool3x3s2_int8_plain(hq.permute(0, 2, 3, 1))
+    pooled = F.max_pool2d(h, 3, 2, 1)
+    return quantize_int8(pooled, inv.float()[:, None, None]).permute(0, 2, 3, 1).contiguous()
 
 
 def s2d_stem_pool_int8(xs: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                        inv: torch.Tensor) -> torch.Tensor:
-    """K3 on CUDA (xs, w bf16; bias, inv f32 with inv >= 0, the inverse of a
-    quantization scale), the plain version on the CPU."""
+    """K3 on CUDA (xs, w bf16; bias, inv f32 of either sign), the plain
+    version on the CPU."""
     if xs.device.type == "cpu":
         return s2d_stem_pool_int8_plain(xs, w, bias, inv)
     _check_cuda("s2d_stem_pool_int8", xs, w, bias, inv)

@@ -24,13 +24,14 @@ import re
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
 SEED, BLOCKS, ITERS = 0, 5, 50
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
-_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_PROPS = re.compile(r"Function properties for (\S+)\s*\n\s*(\d+) bytes stack frame, "
+                    r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
 
 
@@ -43,10 +44,10 @@ def ptxas_usage(log: str, kernel: str = "s2d_stem_pool_int8_kernel") -> Dict[str
             continue
         usage = {"regs": None, "stack_bytes": 0, "spill_store_bytes": 0,
                  "spill_load_bytes": 0, "static_smem_bytes": 0}
-        m = _SPILL.search(body)
-        if m:
-            usage.update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]),
-                         spill_load_bytes=int(m[3]))
+        for m in _PROPS.finditer(body):  # the kernel's own, not a callee's
+            if m[1] == name:
+                usage.update(stack_bytes=int(m[2]), spill_store_bytes=int(m[3]),
+                             spill_load_bytes=int(m[4]))
         m = _REGS.search(body)
         if m:
             usage["regs"] = int(m[1])
@@ -55,21 +56,55 @@ def ptxas_usage(log: str, kernel: str = "s2d_stem_pool_int8_kernel") -> Dict[str
     raise ValueError(f"no ptxas report for {kernel}")
 
 
-def _build(src: Path, out_dir: Path):
+def build_verbose(src: Path, out_dir: Path, extra_flags: Sequence[str] = ()):
+    """Compile `src` with the package's nvcc flags, `extra_flags` and
+    `-Xptxas -v` into out_dir; (loaded library, nvcc's report)."""
     from automoe_tpu_torch.ops._ext import NVCC_FLAGS, nvcc_path
 
-    flags = NVCC_FLAGS + ["-Xptxas", "-v"]
+    flags = NVCC_FLAGS + list(extra_flags) + ["-Xptxas", "-v"]
     digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
-    out = out_dir / f"stem_{digest}.so"
+    out = out_dir / f"{src.stem}_{digest}.so"
     res = subprocess.run([nvcc_path(), *flags, "-o", str(out), str(src)],
                          capture_output=True, text=True)
     if res.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}\n{res.stderr}")
-    lib = ctypes.CDLL(str(out))
+    return ctypes.CDLL(str(out)), res.stdout + res.stderr
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def interleaved_ms(launch: Callable[[int], None], n: int) -> List[List[float]]:
+    """Per build k < n, BLOCKS blocks of ITERS back-to-back `launch(k)`, the
+    builds in turn block by block (the order reversed every other round);
+    the mean ms of each block (CUDA events)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    blocks: List[List[float]] = [[] for _ in range(n)]
+    for r in range(BLOCKS):
+        for k in (range(n) if r % 2 == 0 else reversed(range(n))):
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(ITERS):
+                launch(k)
+            end.record()
+            end.synchronize()
+            blocks[k].append(start.elapsed_time(end) / ITERS)
+    return blocks
+
+
+def _build(src: Path, out_dir: Path):
+    lib, log = build_verbose(src, out_dir)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.automoe_stem_s2d_pool_int8.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.automoe_stem_s2d_pool_int8.restype = i
-    return lib, ptxas_usage(res.stdout + res.stderr)
+    return lib, ptxas_usage(log)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -84,11 +119,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from automoe_tpu_torch.ops import stem
     from automoe_tpu_torch.ops._ext import BUILD_DIR
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(json.dumps({"card": smi}), flush=True)
+    print(json.dumps({"card": card_name()}), flush=True)
     sources = [Path(stem.__file__).resolve().parents[1] / "csrc" / "stem.cu", *args.against]
     out_dir = BUILD_DIR.parent / "bench_stem"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -99,7 +130,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     stream = torch.cuda.current_stream().cuda_stream
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for B in args.batch:
         xs = torch.randn(B, 132, 132, 12, device="cuda", generator=gen).bfloat16()
         w = (torch.randn(192, 256, device="cuda", generator=gen) * 0.05).bfloat16()
@@ -121,17 +151,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             errs.append((int(d.max()), float((d > 0).float().mean())))
             for _ in range(3):
                 launch(k)
-        blocks = [[] for _ in built]
-        for r in range(BLOCKS):
-            order = range(len(built)) if r % 2 == 0 else reversed(range(len(built)))
-            for k in order:
-                torch.cuda.synchronize()
-                start.record()
-                for _ in range(ITERS):
-                    launch(k)
-                end.record()
-                end.synchronize()
-                blocks[k].append(start.elapsed_time(end) / ITERS)
+        blocks = interleaved_ms(launch, len(built))
         for k, src in enumerate(sources):
             print(json.dumps({"batch": B, "source": str(src), "ms": float(np.median(blocks[k])),
                               "ms_blocks": blocks[k], "max_abs_err": errs[k][0],

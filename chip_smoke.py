@@ -8,8 +8,9 @@ Phases, each of which must pass (none is caught):
      source, all started together (stem.cu timed here, auction.cu in 8);
   2. K3, the fused int8 stem kernel, against its plain PyTorch version
      at B=8 and B=128, 256x256 input: int8 outputs within ±1 on at most
-     0.1% of elements; the kernel's time alone (back-to-back launches of
-     the library's entry point, three blocks of 50) and through its
+     0.1% of elements, with inv > 0 and with inv of both signs; the
+     kernel's time alone (back-to-back launches of the library's entry
+     point, three blocks of 50) and through its
      wrapper, beside the plain version and the unfused "pool"-variant
      path (serving/quant.py::s2d_stem_pool_unfused: cuDNN conv, quantize,
      K4) at the same shapes;
@@ -30,10 +31,13 @@ Phases, each of which must pass (none is caught):
   9. K1+K2, the auction with its in-kernel JV escalation, against its plain
      version at B=32, N=48, Q=64 in three regimes (diverse random costs,
      degenerate clustered predictions, max_iters=0 = every element through
-     JV with invalid rows and one invalid element): identical assignments,
-     total cost within 1e-4 of scipy's linear_sum_assignment; the kernel's
-     time alone (back-to-back launches of the library's entry point on
-     pre-masked inputs, three blocks of 50) and through its wrapper;
+     JV with invalid rows and one invalid element;
+     tools/bench_auction.py::auction_regimes): identical assignments,
+     total cost within 1e-4 of scipy's linear_sum_assignment, and with
+     escalate=False (greedy completion) identical to its plain version;
+     the kernel's time alone (back-to-back launches of the library's entry
+     point on pre-masked inputs, three blocks of 50) and through its
+     wrapper;
  10. two SGD detection train steps on the card (matcher auction_kernel:
      K1 launches) against the same steps on the CPU (its plain version),
      f32 with TF32 off, 64x64 images, B=2, N=4, weights from one seed:
@@ -145,10 +149,11 @@ def stem_kernel_ms(stem, xs, w, bias, inv, blocks: int = 3, iters: int = 50) -> 
 
 def phase_k3(stem, gen):
     """K3 against its plain version at B=8 and B=128: int8 outputs within
-    ±1 on at most 0.1% of elements. Times: the kernel alone (three blocks
-    of 50 back-to-back launches, the median block), its wrapper (median of
-    30 calls, one event pair each), the plain version (mean of 5) and the
-    unfused "pool"-variant path (three blocks of 20, the median block)."""
+    ±1 on at most 0.1% of elements, with inv > 0 and with inv of both
+    signs. Times: the kernel alone (three blocks of 50 back-to-back
+    launches, the median block), its wrapper (median of 30 calls, one event
+    pair each), the plain version (mean of 5) and the unfused
+    "pool"-variant path (three blocks of 20, the median block)."""
     import torch
 
     from automoe_tpu_torch.serving.quant import s2d_stem_pool_unfused
@@ -163,13 +168,22 @@ def phase_k3(stem, gen):
         max_err, frac = int(d.max()), float((d > 0).float().mean())
         assert out.shape == (B, 64, 64, 256) and out.dtype == torch.int8
         assert max_err <= 1 and frac <= 1e-3, (B, max_err, frac)
+        # inv of both signs (about half the channels negative, one zero)
+        xs, w, bias, inv = args
+        sign = torch.where(torch.rand(256, device="cuda", generator=gen) < 0.5, -1.0, 1.0)
+        mixed = (xs, w, bias, inv * sign * (torch.arange(256, device="cuda") != 7))
+        d = (stem.s2d_stem_pool_int8(*mixed).int()
+             - stem.s2d_stem_pool_int8_plain(*mixed).int()).abs()
+        torch.cuda.synchronize()
+        mixed_err, mixed_frac = int(d.max()), float((d > 0).float().mean())
+        assert mixed_err <= 1 and mixed_frac <= 1e-3, (B, mixed_err, mixed_frac)
         flops = 2.0 * B * 128 * 128 * 192 * 256
         b_ms, b_by = bound(flops, PEAK_BF16_FLOPS, nbytes(*args, out))
-        xs, w, bias, inv = args
         unfused = (xs, w.reshape(4, 4, 12, -1).permute(3, 2, 0, 1).contiguous(),
                    bias.bfloat16(), inv)
         blocks = stem_kernel_ms(stem, *args)
-        res[B] = dict(max_abs_err=max_err, diff_frac=frac,
+        res[B] = dict(max_abs_err=max_err, diff_frac=frac, mixed_sign_inv_max_abs_err=mixed_err,
+                      mixed_sign_inv_diff_frac=mixed_frac,
                       ms=float(np.median(blocks)), ms_blocks=blocks,
                       wrapper_ms=cuda_ms_median(lambda: stem.s2d_stem_pool_int8(*args),
                                                 iters=30),
@@ -222,50 +236,16 @@ def kernel_ms(ak, benefit, valid, eps, max_iters: int, blocks: int = 3,
 
     def launch():
         ak.raise_on(lib.automoe_auction_solve(b.data_ptr(), v.data_ptr(), e.data_ptr(),
-                                              out.data_ptr(), B, N, Q, max_iters, stream),
+                                              out.data_ptr(), B, N, Q, max_iters, 1, stream),
                     "auction_solve")
 
     return [cuda_ms(launch, iters=iters) for _ in range(blocks)]
 
 
-def auction_regimes(gen):
-    """B=32, N=48, Q=64 (256x256 images, box cap 48) in three regimes:
-    (name, benefit, valid, eps, max_iters)."""
-    import torch
-
-    from automoe_tpu_torch.ops.matching import match_cost_matrix
-
-    B, N, Q, C = 32, 48, 64, 10
-    # diverse: random costs (tests/test_pallas_auction.py recipe)
-    benefit = -torch.rand(B, N, Q, device="cuda", generator=gen) * 10
-    valid = torch.ones(B, N, dtype=torch.bool, device="cuda")
-    valid[1, 5:] = False
-    valid[2] = False
-    # degenerate: the clustered predictions of an untrained detector
-    logits = (torch.randn(1, 1, C, device="cuda", generator=gen)
-              + 1e-3 * torch.randn(B, Q, C, device="cuda", generator=gen))
-    boxes = (torch.tensor([0.4, 0.4, 0.6, 0.6], device="cuda")
-             + 1e-3 * torch.randn(B, Q, 4, device="cuda", generator=gen)).clamp(0, 1)
-    tb = torch.rand(B, N, 4, device="cuda", generator=gen) * 0.8 + 0.1
-    tl = torch.randint(0, C, (B, N), device="cuda", generator=gen)
-    deg = -match_cost_matrix(logits, boxes, tb, tl).transpose(1, 2).contiguous()
-    # max_iters=0: every element through JV, with invalid rows and elements
-    jv_valid = valid.clone()
-    jv_valid[3, ::2] = False
-    jv_valid[4, 40:] = False
-
-    def eps_of(b, v):  # the matcher's eps (ops/auction_kernel.py)
-        b = torch.where(v[..., None], b, torch.zeros_like(b))
-        return (b.amax((1, 2)) - b.amin((1, 2))).clamp(min=1e-3) * 1e-6 / N
-
-    all_valid = torch.ones_like(valid)
-    return [("diverse", benefit, valid, eps_of(benefit, valid), 128),
-            ("degenerate", deg, all_valid, eps_of(deg, all_valid), 128),
-            ("jv", benefit, jv_valid, eps_of(benefit, jv_valid), 0)]
-
-
 def phase_auction(ak, gen):
     import torch
+
+    from automoe_tpu_torch.tools.bench_auction import auction_regimes
 
     try:
         from scipy.optimize import linear_sum_assignment
@@ -278,8 +258,13 @@ def phase_auction(ak, gen):
         masked = torch.where(valid[..., None], benefit, torch.zeros_like(benefit))
         ref = ak.auction_solve_plain(masked, valid, eps, max_iters=max_iters)
         assert torch.equal(out, ref), f"auction kernel differs from its plain version ({name})"
-        auction_only = ak.auction_phase_plain(masked, valid, eps, max_iters)
-        escalated = int(((auction_only < 0) & valid).any(1).sum())
+        counts = ak.auction_counts_plain(masked, valid, eps, max_iters)
+        escalated = int(counts["escalated"].sum())
+        # the escalate=False branch (greedy completion), held against its plain version
+        greedy = ak.auction_solve(benefit, valid, eps, max_iters=max_iters, escalate=False)
+        torch.cuda.synchronize()
+        assert torch.equal(greedy, ak.auction_solve_plain(
+            masked, valid, eps, max_iters=max_iters, escalate=False)), f"greedy differs ({name})"
         gap = 0.0
         if linear_sum_assignment is not None:
             cost = (-benefit).double().cpu().numpy()
@@ -299,6 +284,7 @@ def phase_auction(ak, gen):
         blocks = kernel_ms(ak, benefit, valid, eps, max_iters)
         res[name] = dict(
             max_abs_err=int((out - ref).abs().max()), escalated=escalated,
+            rounds_max=int(counts["rounds"].max()), jv_scans_max=int(counts["jv_scans"].max()),
             max_iters=max_iters, scipy_cost_gap=gap if linear_sum_assignment else None,
             ms=float(np.median(blocks)), ms_blocks=blocks,
             wrapper_ms=cuda_ms_median(lambda: ak.auction_solve(benefit, valid, eps,
@@ -560,8 +546,12 @@ def main() -> int:
                       "(the \"pool\" stem variant's path)",
         "shape_batch": B_MAIN, "ms_blocks": main_["ms_blocks"],
         "wrapper_ms": main_["wrapper_ms"],
+        "mixed_sign_inv_max_abs_err": main_["mixed_sign_inv_max_abs_err"],
+        "mixed_sign_inv_diff_frac": main_["mixed_sign_inv_diff_frac"],
         "b128": {k: big[k] for k in ("ms", "ms_blocks", "wrapper_ms", "plain_ms", "unfused_ms",
-                                     "bound_ms", "max_abs_err", "diff_frac")},
+                                     "bound_ms", "max_abs_err", "diff_frac",
+                                     "mixed_sign_inv_max_abs_err",
+                                     "mixed_sign_inv_diff_frac")},
     }]
     main_, big = k4[B_MAIN], k4[128]
     kernels.append({
@@ -586,11 +576,11 @@ def main() -> int:
         "bound_by": div["bound_by"],
         # no PyTorch call solves an assignment
         "library_ms": None,
-        "shape": [32, 48, 64], "escalated": div["escalated"],
+        "shape": [32, 48, 64], "escalated": div["escalated"], "rounds_max": div["rounds_max"],
         "ms_blocks": div["ms_blocks"], "wrapper_ms": div["wrapper_ms"],
         **{name: {k: k12[name][k] for k in ("ms", "ms_blocks", "wrapper_ms", "plain_ms",
                                             "bound_ms", "max_abs_err", "escalated",
-                                            "max_iters")}
+                                            "rounds_max", "jv_scans_max", "max_iters")}
            for name in ("degenerate", "jv")},
     })
     print(json.dumps({"engine_step_ms_b8": steps}), flush=True)

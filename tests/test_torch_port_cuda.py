@@ -24,7 +24,7 @@ def gen():
 
 def _stem_inputs(gen, B, H, W, O=256, zero_inv=False):
     """s2d input for an HxW image, [192,O] weights, bias and inv on the card;
-    with zero_inv every third inv is 0 (the kernel takes inv >= 0)."""
+    with zero_inv every third inv is 0."""
     xs = torch.randn(B, H // 2 + 4, W // 2 + 4, 12, device="cuda", generator=gen).bfloat16()
     w = (torch.randn(192, O, device="cuda", generator=gen) * 0.05).bfloat16()
     bias = torch.randn(O, device="cuda", generator=gen) * 0.1
@@ -56,6 +56,25 @@ def test_stem_kernel_matches_plain(gen, B, H, W, O, zero_inv):
     assert stem.LAUNCHES["s2d_stem_pool_int8"] == n + 1
     d = (out.int() - stem.s2d_stem_pool_int8_plain(xs, w, bias, inv).int()).abs()
     assert d.max() <= 1 and (d > 0).float().mean() <= 1e-3
+
+
+def test_stem_kernel_matches_plain_mixed_sign_inv(gen):
+    """About half the channels with a negative inv, one with inv = 0: the
+    kernel negates the pooled bytes of the negative channels, which gives
+    the plain version's q(max h * inv); same tolerance as above."""
+    from automoe_tpu_torch.ops import stem
+
+    xs, w, bias, inv = _stem_inputs(gen, 8, 256, 256)
+    sign = torch.where(torch.rand(256, device="cuda", generator=gen) < 0.5, -1.0, 1.0)
+    inv = inv * sign
+    inv[7] = 0
+    out = stem.s2d_stem_pool_int8(xs, w, bias, inv)
+    torch.cuda.synchronize()
+    ref = stem.s2d_stem_pool_int8_plain(xs, w, bias, inv)
+    d = (out.int() - ref.int()).abs()
+    assert d.max() <= 1 and (d > 0).float().mean() <= 1e-3
+    assert out[..., inv < 0].max() <= 0 < out[..., inv > 0].max()
+    assert (out[..., 7] == 0).all()
 
 
 def test_stem_kernel_is_deterministic(gen):
@@ -105,8 +124,9 @@ def test_int8_engine_on_cuda(gen, variant):
 
 
 def _auction_inputs(B, N, Q, regime, seed=0):
-    """benefit [B,N,Q], valid [B,N], eps [B] on the card: random costs, or
-    the clustered predictions of an untrained detector (near-ties)."""
+    """benefit [B,N,Q], valid [B,N], eps [B] on the card: random costs, the
+    clustered predictions of an untrained detector (near-ties), or column
+    ties (every row sees the same best benefit on 8 columns)."""
     from automoe_tpu_torch.ops.matching import match_cost_matrix
 
     rng = np.random.default_rng(seed)
@@ -120,6 +140,10 @@ def _auction_inputs(B, N, Q, regime, seed=0):
                                    for a in (logits, boxes, tb)),
                                  torch.tensor(tl, device="cuda"))
         benefit = -cost.transpose(1, 2).contiguous()
+    elif regime == "ties":
+        b = -rng.integers(1, 4, (B, N, Q)).astype(np.float32)
+        b[:, :, rng.choice(Q, 8, replace=False)] = -0.5
+        benefit = torch.tensor(b, device="cuda")
     else:
         benefit = -torch.tensor(rng.uniform(0, 10, (B, N, Q)), dtype=torch.float32,
                                 device="cuda")
@@ -137,6 +161,16 @@ def _auction_inputs(B, N, Q, regime, seed=0):
     (2, 64, 256, "random", 128),  # 512^2 images: above 48 KB of shared memory
     (3, 12, 20, "degenerate", 5),
     (2, 3, 40, "random", 1000),
+    (3, 48, 100, "random", 128),  # Q not a multiple of 32
+    (2, 24, 196, "degenerate", 128),
+    (3, 70, 40, "random", 128),  # N > Q: rows left unassigned
+    (3, 80, 50, "degenerate", 5),
+    (4, 48, 64, "ties", 0),
+    (4, 48, 64, "ties", 5),
+    (4, 48, 64, "ties", 128),
+    (2, 16, 128, "ties", 0),  # JV's register path at its widest per-lane count but one
+    (2, 20, 300, "random", 0),  # Q > 256: JV with its state in shared memory
+    (2, 12, 300, "degenerate", 128),
 ])
 def test_auction_kernel_matches_plain(gen, B, N, Q, regime, max_iters):
     from automoe_tpu_torch.ops import auction_kernel as ak
@@ -150,6 +184,35 @@ def test_auction_kernel_matches_plain(gen, B, N, Q, regime, max_iters):
     ref = ak.auction_solve_plain(masked, valid, eps, max_iters=max_iters)
     assert torch.equal(out, ref)
     assert (out[~valid] == -1).all()
+
+
+@pytest.mark.parametrize("B,N,Q,regime,max_iters", [
+    (4, 48, 64, "degenerate", 5),
+    (3, 48, 100, "ties", 2),
+    (3, 70, 40, "random", 3),
+])
+def test_auction_kernel_greedy_matches_plain(gen, B, N, Q, regime, max_iters):
+    """escalate=False: the greedy completion in place of JV."""
+    from automoe_tpu_torch.ops import auction_kernel as ak
+
+    benefit, valid, eps = _auction_inputs(B, N, Q, regime)
+    out = ak.auction_solve(benefit, valid, eps, max_iters=max_iters, escalate=False)
+    torch.cuda.synchronize()
+    masked = torch.where(valid[..., None], benefit, torch.zeros_like(benefit))
+    assert torch.equal(out, ak.auction_solve_plain(masked, valid, eps, max_iters=max_iters,
+                                                   escalate=False))
+
+
+def test_auction_kernel_is_deterministic(gen):
+    """Two calls give identical outputs, though the bids' atomics land in
+    another order."""
+    from automoe_tpu_torch.ops import auction_kernel as ak
+
+    benefit, valid, eps = _auction_inputs(32, 48, 64, "degenerate", seed=3)
+    first = ak.auction_solve(benefit, valid, eps, max_iters=128)
+    second = ak.auction_solve(benefit, valid, eps, max_iters=128)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_auction_kernel_rejects_oversized(gen):

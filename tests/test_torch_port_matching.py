@@ -18,6 +18,9 @@ import tests.torch_port_common  # noqa: F401  (caps torch's intra-op threads)
 # (B, Q, N) of tests/test_pallas_auction.py's sweep
 SOLVE_SHAPES = [(2, 16, 8), (4, 64, 48), (2, 64, 16), (1, 256, 32), (3, 36, 36)]
 MATCHERS = ["hungarian", "auction", "auction_kernel", "auction_pallas:64"]
+# ((B, Q, N), max_iters) for escalate=False: caps that leave rows for the
+# greedy completion, and N > Q
+GREEDY_CASES = [((4, 64, 48), 3), ((2, 16, 8), 1), ((3, 36, 36), 2), ((3, 8, 12), 4)]
 
 
 def _solve_inputs(B, Q, N, seed):
@@ -123,6 +126,11 @@ def jax_ref():
             ref[("solve", shape, mi)] = np.asarray(auction_solve_pallas(
                 jnp.asarray(benefit), jnp.asarray(valid), jnp.asarray(eps),
                 max_iters=mi, interpret=True))
+    for i, (shape, mi) in enumerate(GREEDY_CASES):
+        benefit, valid, eps = _solve_inputs(*shape, seed=200 + i)
+        ref[("greedy_solve", shape, mi)] = np.asarray(auction_solve_pallas(
+            jnp.asarray(benefit), jnp.asarray(valid), jnp.asarray(eps), max_iters=mi,
+            interpret=True, escalate=False))
     q1 = np.array([[[0.9], [0.1], [0.5]], [[0.2], [0.7], [0.7]]], np.float32)
     q1_valid = np.array([[True, True, True], [False, True, True]])
     ref["q1"] = np.asarray(auction_solve_pallas(q1, q1_valid, np.full(2, 0.01, np.float32),
@@ -203,6 +211,37 @@ def test_auction_plain_equals_pallas_kernel(jax_ref, shape, max_iters):
                         torch.from_numpy(eps), max_iters=max_iters)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), jax_ref[("solve", shape, max_iters)])
+
+
+@pytest.mark.parametrize("shape,max_iters", GREEDY_CASES,
+                         ids=lambda c: "x".join(map(str, c)) if isinstance(c, tuple) else str(c))
+def test_auction_greedy_plain_equals_pallas_kernel(jax_ref, shape, max_iters):
+    """escalate=False: the capped auction's leftover rows take their best
+    free object row by row, exactly as the Pallas kernel's greedy branch."""
+    from automoe_tpu_torch.ops.auction_kernel import auction_phase_plain, auction_solve
+
+    benefit, valid, eps = _solve_inputs(*shape, seed=200 + GREEDY_CASES.index((shape, max_iters)))
+    b, v, e = map(torch.from_numpy, (np.where(valid[..., None], benefit, 0), valid, eps))
+    left, _ = auction_phase_plain(b, v, e, max_iters)
+    assert bool(((left < 0) & v).any())  # the greedy branch has rows to place
+    got = auction_solve(torch.from_numpy(benefit), v, e, max_iters=max_iters, escalate=False)
+    np.testing.assert_array_equal(got.numpy(), jax_ref[("greedy_solve", shape, max_iters)])
+
+
+def test_auction_counts_plain():
+    """The loop counts the bench tool prints: no rounds at cap 0 and every
+    element with a valid row through JV, at least one scan per valid row;
+    uncapped, every element converges in the auction."""
+    from automoe_tpu_torch.ops.auction_kernel import auction_counts_plain
+
+    benefit, valid, eps = map(torch.from_numpy, _solve_inputs(3, 16, 8, seed=7))
+    c0 = auction_counts_plain(benefit, valid, eps, 0)
+    assert c0["rounds"].tolist() == [0, 0, 0]
+    assert c0["escalated"].tolist() == [True, True, False]
+    assert (c0["jv_scans"] >= valid.sum(1)).all() and c0["jv_scans"][2] == 0
+    c1 = auction_counts_plain(benefit, valid, eps, 1000)
+    assert not c1["escalated"].any() and (c1["jv_scans"] == 0).all()
+    assert (c1["rounds"][:2] >= 1).all() and c1["rounds"][2] == 0
 
 
 def test_auction_single_query_equals_pallas(jax_ref):

@@ -2,9 +2,10 @@
 ops/stem.py) against the JAX package's Pallas kernels (interpret mode)
 and XLA path, and the port's stems_s2d_q8 against the JAX one.
 
-K3 (fused s2d conv + bias + ReLU + quantize + pool): int8 outputs within
-±1 on under 0.1% of elements — the conv sums are taken in another order,
-which can move a value across a rounding boundary. K4 (int8 pool):
+K3 (fused s2d conv + bias + ReLU + pool + quantize, inv of either sign):
+int8 outputs within ±1 on under 0.1% of elements — the conv sums are
+taken in another order, which can move a value across a rounding
+boundary. K4 (int8 pool):
 bit-exact.
 """
 from __future__ import annotations
@@ -72,6 +73,29 @@ def test_plain_stem_matches_pallas_and_xla(bf16_values):
     assert got.shape == pallas.shape == (2, 16, 16, O)
     _assert_one_quantum(got, pallas)
     _assert_one_quantum(got, xla)
+
+
+def test_plain_stem_matches_pallas_with_mixed_sign_inv():
+    """About half the channels with a negative inv and one with inv = 0:
+    the plain version pools before it quantizes, as the Pallas kernel does,
+    so it gives q(max h * inv) for either sign."""
+    from automoe_tpu_torch.ops.stem import s2d_stem_pool_int8_plain
+
+    xs, w, bias, inv = _stem_inputs(11, True)
+    rng = np.random.default_rng(12)
+    inv = (inv * np.where(rng.uniform(size=O) < 0.5, -1, 1)).astype(np.float32)
+    inv[7] = 0.0
+    assert 0.3 < (inv < 0).mean() < 0.7
+    got = s2d_stem_pool_int8_plain(
+        torch.from_numpy(xs).bfloat16(), torch.from_numpy(w.reshape(192, O)).bfloat16(),
+        torch.from_numpy(bias), torch.from_numpy(inv)).numpy()
+    pallas = np.asarray(s2d_stem_pool_int8(jnp.asarray(xs), jnp.asarray(w),
+                                           jnp.asarray(bias), jnp.asarray(inv),
+                                           interpret=True))
+    assert got.shape == pallas.shape == (2, 16, 16, O)
+    assert got[..., inv < 0].max() <= 0 < got[..., inv > 0].max()
+    assert (got[..., 7] == 0).all()
+    _assert_one_quantum(got, pallas)
 
 
 def test_stem_wrapper_on_cpu_is_the_plain_version():

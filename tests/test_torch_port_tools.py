@@ -1,9 +1,13 @@
-"""The port's K3 bench tool (automoe_tpu_torch/tools/bench_stem.py): its
-reading of nvcc's `-Xptxas -v` report, on the CPU."""
+"""The port's kernel bench tools (automoe_tpu_torch/tools/bench_stem.py,
+bench_auction.py), on the CPU: their reading of nvcc's `-Xptxas -v`
+report and of an auction source's entry point."""
 from __future__ import annotations
+
+from pathlib import Path
 
 import pytest
 
+from automoe_tpu_torch.tools.bench_auction import has_escalate
 from automoe_tpu_torch.tools.bench_stem import ptxas_usage
 
 LOG = """\
@@ -19,14 +23,50 @@ ptxas info    : Used 254 registers, used 3 barriers, 15360 bytes smem, 424 bytes
 """
 
 
-def test_ptxas_usage_reads_the_named_kernel():
-    assert ptxas_usage(LOG) == {"regs": 254, "stack_bytes": 8, "spill_store_bytes": 16,
-                                "spill_load_bytes": 12, "static_smem_bytes": 15360}
-    assert ptxas_usage(LOG, "maxpool3x3s2_int8_kernel") == {
-        "regs": 30, "stack_bytes": 0, "spill_store_bytes": 0, "spill_load_bytes": 0,
-        "static_smem_bytes": 0}
+# two instantiations of a template kernel; the second calls a function
+# that was not inlined, whose own report comes first
+AUCTION_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114auction_kernelILi1EEEvPKfPKiS2_Piiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114auction_kernelILi1EEEvPKfPKiS2_Piiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 38 registers, used 1 barriers, 408 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114auction_kernelILi2EEEvPKfPKiS2_Piiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115jv_exact_sharedERKNS_4SmemEiii
+    24 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114auction_kernelILi2EEEvPKfPKiS2_Piiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 1 barriers, 408 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("log,kernel,want", [
+    (LOG, None, {"regs": 254, "stack_bytes": 8, "spill_store_bytes": 16,
+                 "spill_load_bytes": 12, "static_smem_bytes": 15360}),
+    (LOG, "maxpool3x3s2_int8_kernel", {"regs": 30, "stack_bytes": 0, "spill_store_bytes": 0,
+                                       "spill_load_bytes": 0, "static_smem_bytes": 0}),
+    (AUCTION_LOG, "auction_kernelILi2E", {"regs": 48, "stack_bytes": 0, "spill_store_bytes": 0,
+                                          "spill_load_bytes": 0, "static_smem_bytes": 0}),
+], ids=["stem-default", "pool", "auction"])
+def test_ptxas_usage_reads_the_named_kernel(log, kernel, want):
+    assert (ptxas_usage(log) if kernel is None else ptxas_usage(log, kernel)) == want
 
 
 def test_ptxas_usage_raises_without_the_kernel():
     with pytest.raises(ValueError, match="no ptxas report"):
         ptxas_usage(LOG, "auction_kernel")
+
+
+def test_has_escalate_reads_the_entry_point(tmp_path):
+    from automoe_tpu_torch.ops import auction_kernel
+
+    src = Path(auction_kernel.__file__).resolve().parents[1] / "csrc" / "auction.cu"
+    assert has_escalate(src)
+    old = tmp_path / "old.cu"
+    old.write_text('extern "C" int automoe_auction_solve(const void* benefit, const void* valid,\n'
+                   "    const void* eps, void* out, int B, int N, int Q, int max_iters,\n"
+                   "    void* stream) {\n  // escalate is not a parameter here\n}\n")
+    assert not has_escalate(old)
+    (tmp_path / "none.cu").write_text("int f() { return 0; }\n")
+    with pytest.raises(ValueError, match="no automoe_auction_solve"):
+        has_escalate(tmp_path / "none.cu")
