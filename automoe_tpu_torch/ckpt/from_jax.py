@@ -131,16 +131,26 @@ def state_dict_from_jax(variables_np: Dict[str, Any], config) -> Dict[str, torch
     sink.linear("gating_network.gate_network.3", gp["gate_fc2"])
     sink.linear("gating_network.output_projection", gp["output_projection"])
 
-    pp = params["policy_head"]
-    ps = stats.get("policy_head", {}).get("backbone", {})
+    _policy(sink, "policy_head.", params["policy_head"], stats.get("policy_head", {}))
+    return sink.out
+
+
+def _policy(sink: _Sink, prefix: str, p: Dict, s: Dict):
+    bs = s.get("backbone", {})
     for j in range(4):
-        sink.conv(f"policy_head.backbone.net.{3 * j}", pp["backbone"][f"conv{j}"])
-        sink.norm(f"policy_head.backbone.net.{3 * j + 1}", pp["backbone"][f"bn{j}"],
-                  ps.get(f"bn{j}"))
-    sink.linear("policy_head.backbone.fc", pp["backbone"]["fc"])
+        sink.conv(f"{prefix}backbone.net.{3 * j}", p["backbone"][f"conv{j}"])
+        sink.norm(f"{prefix}backbone.net.{3 * j + 1}", p["backbone"][f"bn{j}"], bs.get(f"bn{j}"))
+    sink.linear(f"{prefix}backbone.fc", p["backbone"]["fc"])
     for head in ("head_wp", "head_spd"):
         for j, fc in ((0, "fc1"), (2, "fc2"), (4, "fc3")):
-            sink.linear(f"policy_head.{head}.{j}", pp[head][fc])
+            sink.linear(f"{prefix}{head}.{j}", p[head][fc])
+
+
+def policy_state_dict_from_jax(variables_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A standalone JAX TrajectoryPolicy's `{"params", "batch_stats"}`
+    (numpy leaves) → the port's TrajectoryPolicy state dict."""
+    sink = _Sink()
+    _policy(sink, "", variables_np["params"], variables_np.get("batch_stats", {}))
     return sink.out
 
 

@@ -88,10 +88,10 @@ def load_model_config(source: Any) -> AutoMoEConfig:
     """
     if isinstance(source, AutoMoEConfig):
         return source
-    if isinstance(source, (str, Path)) and Path(str(source)).exists():
-        data = json.loads(Path(source).read_text())
-    elif isinstance(source, str):
+    if isinstance(source, str) and source.lstrip().startswith("{"):
         data = json.loads(source)
+    elif isinstance(source, (str, Path)):
+        data = json.loads(Path(source).read_text())
     else:
         data = dict(source)
     return AutoMoEConfig(

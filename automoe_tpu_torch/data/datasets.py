@@ -1,6 +1,6 @@
-"""Detection datasets over the reference's per-sample `.pt` caches (port
-of the detection part of automoe_tpu/data/datasets.py), returning numpy
-NHWC samples with boxes padded to a static cap.
+"""Datasets over the reference's per-sample `.pt` caches (port of the
+detection and CARLA-sequence parts of automoe_tpu/data/datasets.py),
+returning numpy NHWC samples with boxes padded to a static cap.
 
 BDD caches hold an `image_path` decoded with PIL (imported only there) and
 scaled to [0,1]; CARLA caches hold the image tensor itself ([3,H,W] or
@@ -8,13 +8,15 @@ scaled to [0,1]; CARLA caches hold the image tensor itself ([3,H,W] or
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from pathlib import Path
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from automoe_tpu_torch.data.collate import pad_boxes
+from automoe_tpu_torch.data.ego import world_to_ego_xy
 
 
 def _load_pt(path) -> Dict[str, Any]:
@@ -92,3 +94,72 @@ class CarlaDetectionDataset:
         s = _load_pt(self.files[idx])
         boxes, labels = _boxes_labels(s, self.box_cap)
         return {"image": _image_hwc(s["image"]), "bboxes": boxes, "labels": labels}
+
+
+class CarlaSequenceDataset:
+    """Sliding windows (t, t+1..t+horizon) over per-run CARLA frames
+    (`run_*/NNNN.pt`, each with `image` and `vehicle_state` {location,
+    rotation, speed_kmh, control}) with ego-frame waypoint targets, the
+    future speed profile and controls, and the optional `context` vector
+    (weather ∥ traffic_density of frame t)."""
+
+    def __init__(self, split_dir, *, horizon: int = 8, stride: int = 1,
+                 include_context: bool = True, frame_cache_size: int = 256):
+        self.root = Path(split_dir)
+        if not self.root.exists():
+            raise FileNotFoundError(f"split dir not found: {self.root}")
+        self.horizon = int(horizon)
+        self.stride = max(1, int(stride))
+        self.include_context = include_context
+        # index once: {run_dir: [frame files]}
+        self.run_files: Dict[Path, List[Path]] = {}
+        self.index: List[Tuple[Path, int]] = []
+        runs = sorted(d for d in self.root.iterdir()
+                      if d.is_dir() and d.name.startswith("run_"))
+        for run in runs:
+            files = _list_pt(run)
+            self.run_files[run] = files
+            for t in range(0, len(files) - (1 + self.horizon) + 1, self.stride):
+                self.index.append((run, t))
+        if not self.index:
+            raise RuntimeError(f"no valid windows under {self.root}")
+        # neighbouring windows share frames: a per-instance bounded cache
+        self._load = lru_cache(maxsize=frame_cache_size)(_load_pt)
+
+    def __len__(self):
+        return len(self.index)
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        run, t = self.index[idx]
+        files = self.run_files[run]
+        current = self._load(files[t])
+        futures = [self._load(files[t + k]) for k in range(1, self.horizon + 1)]
+
+        vs = current["vehicle_state"]
+        loc_t = _to_np(vs["location"]).astype(np.float32)
+        yaw_deg = float(_to_np(vs["rotation"]).astype(np.float32)[1])
+        future_xy = np.stack([_to_np(f["vehicle_state"]["location"])[:2]
+                              for f in futures]).astype(np.float32)
+        speeds = np.asarray([float(_to_np(f["vehicle_state"]["speed_kmh"])) for f in futures],
+                            np.float32)
+        controls = np.stack([_to_np(f["vehicle_state"]["control"]).astype(np.float32)
+                             for f in futures])  # [H,3] = [throttle, steer, brake]
+        out: Dict[str, Any] = {
+            "image": _image_hwc(current["image"]),
+            "waypoints": world_to_ego_xy(future_xy, loc_t[:2], yaw_deg),  # [H,2]
+            "speed": speeds,
+            "throttle": controls[:, 0],
+            "steering": controls[:, 1],
+            "brake": controls[:, 2],
+            "meta": {
+                "run_id": current.get("meta", {}).get("run_id", run.name),
+                "frame_id": int(current.get("meta", {}).get("frame_id", t)),
+            },
+        }
+        if self.include_context and isinstance(current.get("context"), dict):
+            parts = [_to_np(v).astype(np.float32).reshape(-1)
+                     for v in (current["context"].get(k) for k in ("weather", "traffic_density"))
+                     if v is not None]
+            if parts:
+                out["context"] = np.concatenate(parts)
+        return out

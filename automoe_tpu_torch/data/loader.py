@@ -34,9 +34,14 @@ class ShardedSampler:
         self.drop_last = drop_last
         self.batch_size = batch_size
         self.epoch = 0
+        self.skip_batches = 0
 
-    def set_epoch(self, epoch: int) -> None:
+    def set_epoch(self, epoch: int, skip_batches: int = 0) -> None:
+        """skip_batches: start the epoch's batch stream that many batches
+        in. A mid-epoch resume skips at the index level, so the batches
+        already consumed are never decoded."""
         self.epoch = epoch
+        self.skip_batches = skip_batches
 
     def __iter__(self) -> Iterator[tuple[List[int], int]]:
         """Yields (indices, real count): the last batch of a non-drop_last
@@ -45,10 +50,10 @@ class ShardedSampler:
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
         n_full = len(idx) // self.batch_size
-        for b in range(n_full):
+        for b in range(min(self.skip_batches, n_full), n_full):
             yield idx[b * self.batch_size: (b + 1) * self.batch_size].tolist(), self.batch_size
         rem = idx[n_full * self.batch_size:]
-        if len(rem) and not self.drop_last:
+        if len(rem) and not self.drop_last and self.skip_batches <= n_full:
             yield np.resize(rem, self.batch_size).tolist(), len(rem)
 
     def __len__(self) -> int:
@@ -69,8 +74,8 @@ class DataLoader:
         self.sampler = ShardedSampler(len(dataset), shuffle=shuffle, seed=seed,
                                       drop_last=drop_last, batch_size=batch_size)
 
-    def set_epoch(self, epoch: int) -> None:
-        self.sampler.set_epoch(epoch)
+    def set_epoch(self, epoch: int, skip_batches: int = 0) -> None:
+        self.sampler.set_epoch(epoch, skip_batches)
 
     def __len__(self) -> int:
         return len(self.sampler)

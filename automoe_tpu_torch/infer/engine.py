@@ -95,7 +95,9 @@ class InferenceEngine:
 
     @classmethod
     def from_torch_checkpoint(cls, model_config, ckpt_path: str, **kw):
-        """Serve a reference AutoMoE `.pth` (DDP prefixes stripped)."""
+        """Serve an AutoMoE torch checkpoint: a reference `.pth` (DDP
+        prefixes stripped) or a gating checkpoint written by
+        `automoe-train-torch` (its `model_state_dict`)."""
         from automoe_tpu_torch.ckpt import load_torch_state_dict
 
         return cls(model_config, load_torch_state_dict(ckpt_path), **kw)

@@ -61,13 +61,19 @@ def _last_step(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1)[:, -1:]
 
 
+_SIMPLE_KEYS = ("speed", "steering", "throttle", "brake")
+
+
 def simple_context(batch: Dict[str, torch.Tensor], B: int, dtype, device):
-    """(speed, steering, throttle, brake) as [B,1] each; absent keys are
-    zeros (controls are unavailable at inference)."""
+    """(speed, steering, throttle, brake), each the last step as [B,1], as
+    the JAX model reads them: speed when present, the three controls only
+    when all four keys are present (the CARLA sequence batches), zeros
+    otherwise (controls are unavailable at inference)."""
     zeros = torch.zeros((B, 1), dtype=dtype, device=device)
+    has_all = all(k in batch for k in _SIMPLE_KEYS)
     return [
-        _last_step(batch[k]).to(dtype) if k in batch else zeros
-        for k in ("speed", "steering", "throttle", "brake")
+        _last_step(batch[k]).to(dtype) if k in batch and (k == "speed" or has_all) else zeros
+        for k in _SIMPLE_KEYS
     ]
 
 
@@ -175,10 +181,20 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
                 m.reset_running_stats()
 
 
+def expert_param_mask(named_params) -> Dict[str, bool]:
+    """{parameter name: trainable}, the expert parameters (`experts.*`)
+    frozen: the gating trainer's freeze, as the JAX package's
+    `expert_param_mask` marks its `expert_*` subtrees."""
+    return {n: not n.startswith("experts.") for n, _ in named_params}
+
+
 def create_automoe_model(config, *, fast_gating_pool: bool = False, device=None,
                          dtype=torch.float32, seed: int = 0) -> AutoMoE:
     """Build AutoMoE from a config dict / JSON path / AutoMoEConfig with
-    seeded random weights, in eval mode, on `device` (default cuda)."""
+    seeded random weights, in eval mode, on `device` (default cuda), for
+    inference. The training counterpart is
+    `train.workloads.gating_workload(config).init_model(seed, device)`: the
+    same module in train mode, with its experts frozen."""
     dev = resolve_device(device)
     model = AutoMoE(load_model_config(config), fast_gating_pool=fast_gating_pool,
                     device=dev, dtype=dtype)

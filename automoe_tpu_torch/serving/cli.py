@@ -2,6 +2,8 @@
 port (serving/server.py; `serving.Client` is the reference client).
 
   automoe-serve-torch --checkpoint automoe.pth     # reference torch ckpt
+  automoe-serve-torch --checkpoint checkpoints/gating/run/best.pt --quantize
+                                                   # a checkpoint automoe-train-torch wrote
   automoe-serve-torch --quantize                   # int8 trunks, random init
   automoe-serve-torch --device cpu                 # no GPU
 
@@ -12,6 +14,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from pathlib import Path
 from typing import Optional, Sequence
 
 
@@ -30,8 +33,8 @@ def build_engine(args):
         device=args.device,
     )
     if args.checkpoint:
-        if not args.checkpoint.endswith(".pth"):
-            raise SystemExit("--checkpoint takes a reference .pth file")
+        if not Path(args.checkpoint).is_file():
+            raise SystemExit(f"--checkpoint {args.checkpoint}: no such file")
         return InferenceEngine.from_torch_checkpoint(cfg, args.checkpoint, **kw)
     return InferenceEngine(cfg, **kw)
 
@@ -39,7 +42,9 @@ def build_engine(args):
 def main(argv: Optional[Sequence[str]] = None, block: bool = True):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model-config", default=None)
-    p.add_argument("--checkpoint", default=None, help="reference .pth checkpoint")
+    p.add_argument("--checkpoint", default=None,
+                   help="AutoMoE torch checkpoint: a reference .pth or a gating checkpoint "
+                        "written by automoe-train-torch")
     p.add_argument("--quantize", action="store_true",
                    help="int8 PTQ expert trunks (serving/quant.py)")
     p.add_argument("--fp32", action="store_true")

@@ -1,11 +1,15 @@
-"""Where one detection train step's time goes on the GPU.
+"""Where one train step's time goes on the GPU.
 
-    python -m automoe_tpu_torch.tools.profile_train [--batch 32] [--size 256]
-        [--box-cap 48] [--matcher auction_kernel] [--steps 5] [--no-tf32]
+    python -m automoe_tpu_torch.tools.profile_train [--workload detection|gating]
+        [--batch 32|8] [--size 256] [--box-cap 48] [--matcher auction_kernel]
+        [--steps 5] [--no-tf32]
 
-Runs the detection workload's train step (ResNet-18 expert, seeded random
-weights, AdamW, the JAX CLI's defaults) on one seeded synthetic batch of
-CARLA-style scenes held on the card, and prints as JSON lines: the card's
+Runs a workload's train step with seeded random weights and AdamW at the
+JAX CLI's defaults: `detection`, the ResNet-18 expert on one seeded
+synthetic batch of CARLA-style scenes (batch 32); `gating`, the default
+4-expert AutoMoE with frozen experts on scenes with seeded speeds,
+controls and waypoints (batch 8). The batch is held on the card. Prints
+as JSON lines: the card's
 name and power limit, the host-clock step time (synchronised; median),
 and from torch.profiler over `--steps` steps the device busy time per step
 (sum of GPU activity), the idle share, launches per step, the auction
@@ -31,7 +35,8 @@ def _device_us(e) -> float:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--batch", type=int, default=32)
+    p.add_argument("--workload", choices=["detection", "gating"], default="detection")
+    p.add_argument("--batch", type=int, default=None, help="default 32, gating 8")
     p.add_argument("--size", type=int, default=256)
     p.add_argument("--box-cap", type=int, default=48)
     p.add_argument("--matcher", default="auction_kernel")
@@ -48,7 +53,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from automoe_tpu_torch.tools.synth import scene
     from automoe_tpu_torch.train.state import make_optimizer
     from automoe_tpu_torch.train.step import make_train_step
-    from automoe_tpu_torch.train.workloads import bdd_expert_workload
+    from automoe_tpu_torch.train.workloads import bdd_expert_workload, gating_workload
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -57,6 +62,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.no_tf32:
         torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    gating = args.workload == "gating"
+    args.batch = args.batch or (8 if gating else 32)
     rng = np.random.default_rng(args.seed)
     images, boxes, labels = [], [], []
     for _ in range(args.batch):
@@ -65,13 +72,28 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         images.append(img.transpose(1, 2, 0))
         boxes.append(pb)
         labels.append(pl)
-    batch = {"image": torch.from_numpy(np.stack(images)).to(dev),
-             "bboxes": torch.from_numpy(np.stack(boxes)).to(dev),
-             "labels": torch.from_numpy(np.stack(labels)).to(dev)}
-    wl = bdd_expert_workload("detection", bbox_loss_weight=1.0, matcher=args.matcher)
+    batch = {"image": np.stack(images)}
+    if gating:
+        from automoe_tpu_torch.configs import default_model_config
+
+        cfg = default_model_config()
+        H = cfg.policy.num_waypoints
+        batch.update(speed=rng.uniform(0, 40, (args.batch, H)),
+                     steering=rng.normal(0, 0.2, (args.batch, H)),
+                     throttle=rng.uniform(0, 1, (args.batch, H)),
+                     brake=(rng.uniform(0, 1, (args.batch, H)) < 0.1) * 1.0,
+                     waypoints=rng.normal(0, 5, (args.batch, H, 2)))
+        wl = gating_workload(cfg)
+        lr, wd = 1e-4, 1e-4
+    else:
+        batch.update(bboxes=np.stack(boxes), labels=np.stack(labels))
+        wl = bdd_expert_workload("detection", bbox_loss_weight=1.0, matcher=args.matcher)
+        lr, wd = 2e-4, 1e-5
+    batch = {k: torch.from_numpy(v if v.dtype != np.float64 else v.astype(np.float32)).to(dev)
+             for k, v in batch.items()}
     model = wl.init_model(args.seed, dev)
-    opt = make_optimizer(model.named_parameters(), learning_rate=2e-4, weight_decay=1e-5,
-                         total_steps=1000)
+    opt = make_optimizer(model.named_parameters(), learning_rate=lr, weight_decay=wd,
+                         total_steps=1000, trainable_mask=wl.trainable_mask(model))
     step = make_train_step(wl.loss_fn)
     for _ in range(3):
         step(model, opt, batch)
@@ -91,8 +113,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     busy_ms = sum(_device_us(e) for e in gpu) / 1e3 / args.steps
     step_ms = window_ms / args.steps
     k1 = sum(_device_us(e) for e in gpu if "auction_kernel" in e.key) / 1e3 / args.steps
-    print(json.dumps({"card": smi, "batch": args.batch, "size": args.size,
-                      "box_cap": args.box_cap, "matcher": args.matcher, "steps": args.steps,
+    print(json.dumps({"card": smi, "workload": args.workload, "batch": args.batch,
+                      "size": args.size, "box_cap": args.box_cap, "matcher": args.matcher,
+                      "steps": args.steps,
                       "cudnn_tf32": torch.backends.cudnn.allow_tf32,
                       "host_step_ms_median": float(np.median(wall)),
                       "profiled_step_ms": step_ms, "device_busy_ms_per_step": busy_ms,

@@ -1,9 +1,15 @@
-"""Synthetic detection caches in the reference's on-disk formats:
+"""Synthetic caches in the reference's on-disk formats:
 
-* CARLA, as the CARLA preprocessor writes it
+* CARLA detection, as the CARLA preprocessor writes it
   (automoe_tpu/tools/preprocess_carla.py): `{split}/run_0/NNNNNN.pt`
   holding `image` [3,S,S] float32 (ImageNet-normalised), pixel-xyxy
   `bboxes` float32 [n,4] and `labels` int64 [n];
+* CARLA sequences, the frames `CarlaSequenceDataset` windows:
+  `{split}/run_K/NNNNNN.pt` holding `image`, `vehicle_state` {`location`
+  [3] m, `rotation` [3] deg (yaw at 1), `speed_kmh`, `control` [throttle,
+  steer, brake]}, `context` {`weather` [5], `traffic_density` [3]} and
+  `meta`; each run is one drive at 10 Hz with smoothly varying speed and
+  heading;
 * BDD100K: `{split}/NNNNN.pt` holding `image_path` (a PNG under imgs/,
   written with PIL), `bboxes` and `labels`.
 
@@ -11,8 +17,10 @@ Scenes are a textured background with class-coloured rectangles, so the
 detection loss can fall. Everything is drawn from one numpy generator
 seeded with `seed` alone, so a seed gives the same cache in every process.
 
-    python -m automoe_tpu_torch.tools.synth OUT_DIR [--format carla|bdd] [--size 256]
-        [--train 64] [--val 32]
+    python -m automoe_tpu_torch.tools.synth OUT_DIR [--format carla|carla-sequence|bdd]
+        [--size 256] [--train 64] [--val 32] [--runs 2]
+
+(--train/--val count frames; carla-sequence splits them over --runs runs.)
 """
 from __future__ import annotations
 
@@ -60,6 +68,47 @@ def synth_carla_detection(out_root, *, n_per_split: Optional[Dict[str, int]] = N
     return root
 
 
+def synth_carla_sequence(out_root, *, n_per_split: Optional[Dict[str, int]] = None,
+                         runs: int = 2, size: int = 256, seed: int = 0) -> Path:
+    """Write a CARLA sequence cache under out_root and return out_root:
+    each split's frames split evenly over `runs` runs."""
+    n_per_split = n_per_split or {"train": 84, "val": 26}
+    rng = np.random.default_rng(seed)
+    root = Path(out_root)
+    for split, n in n_per_split.items():
+        for r in range(runs):
+            d = root / split / f"run_{r}"
+            d.mkdir(parents=True, exist_ok=True)
+            xy = rng.uniform(-100, 100, 2)
+            yaw, speed = rng.uniform(-180, 180), rng.uniform(0, 40)
+            weather = rng.uniform(0, 1, 5).astype(np.float32)
+            for i in range(n // runs):
+                steer = float(np.clip(rng.normal(0, 0.2), -1, 1))
+                throttle = float(rng.uniform(0.2, 0.8))
+                brake = float(rng.uniform(0, 1) < 0.1)
+                speed = float(np.clip(speed + 3 * throttle - 8 * brake - 1, 0, 60))
+                yaw += 10 * steer
+                heading = np.deg2rad(yaw)
+                xy = xy + speed / 3.6 * 0.1 * np.array([np.cos(heading), np.sin(heading)])
+                image, _, _ = scene(rng, size, int(rng.integers(1, 8)), 10)
+                torch.save({
+                    "image": torch.from_numpy(image),
+                    "vehicle_state": {
+                        "location": torch.tensor([xy[0], xy[1], 0.0], dtype=torch.float32),
+                        "rotation": torch.tensor([0.0, yaw, 0.0], dtype=torch.float32),
+                        "speed_kmh": torch.tensor(speed, dtype=torch.float32),
+                        "control": torch.tensor([throttle, steer, brake], dtype=torch.float32),
+                    },
+                    "context": {
+                        "weather": torch.from_numpy(weather),
+                        "traffic_density": torch.from_numpy(
+                            rng.uniform(0, 1, 3).astype(np.float32)),
+                    },
+                    "meta": {"run_id": f"run_{r}", "frame_id": i},
+                }, d / f"{i:06d}.pt")
+    return root
+
+
 def synth_bdd_detection(out_root, *, n_per_split: Optional[Dict[str, int]] = None,
                         size: int = 256, max_boxes: int = 20, num_classes: int = 10,
                         seed: int = 0) -> Path:
@@ -86,14 +135,20 @@ def synth_bdd_detection(out_root, *, n_per_split: Optional[Dict[str, int]] = Non
 def main(argv=None) -> None:
     p = argparse.ArgumentParser("automoe_tpu_torch.tools.synth")
     p.add_argument("out")
-    p.add_argument("--format", choices=["carla", "bdd"], default="carla")
+    p.add_argument("--format", choices=["carla", "carla-sequence", "bdd"], default="carla")
     p.add_argument("--size", type=int, default=256)
     p.add_argument("--train", type=int, default=64)
     p.add_argument("--val", type=int, default=32)
+    p.add_argument("--runs", type=int, default=2)
     p.add_argument("--seed", type=int, default=0)
     a = p.parse_args(argv)
-    fn = synth_carla_detection if a.format == "carla" else synth_bdd_detection
-    fn(a.out, n_per_split={"train": a.train, "val": a.val}, size=a.size, seed=a.seed)
+    kw = dict(n_per_split={"train": a.train, "val": a.val}, size=a.size, seed=a.seed)
+    if a.format == "carla-sequence":
+        synth_carla_sequence(a.out, runs=a.runs, **kw)
+    elif a.format == "carla":
+        synth_carla_detection(a.out, **kw)
+    else:
+        synth_bdd_detection(a.out, **kw)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,9 @@ below is that chain written out in PyTorch with optax's arithmetic:
   CosineAnnealingLR's recursion); 'constant'; 'cosine_per_epoch' takes
   the cosine at t // steps_per_epoch;
 * frozen parameters (trainable_mask False) get zero updates and no state.
+
+`state_dict()` / `load_state_dict()` carry the step count and the moments,
+so a resumed run continues the same trajectory, schedule included.
 """
 from __future__ import annotations
 
@@ -64,6 +67,24 @@ class Optimizer:
         t = torch.tensor(float(min(count, self.total_steps)), dtype=torch.float32)
         cosine = 0.5 * (1 + torch.cos(math.pi * t / float(self.total_steps)))
         return float(self.learning_rate * ((1 - self.alpha) * cosine + self.alpha))
+
+    def state_dict(self) -> Dict:
+        """The step count (which fixes the schedule's position) and the AdamW
+        moments of the trainable parameters, by parameter name. The tensors
+        are the live ones: copy them before the next step if they must keep."""
+        return {"count": self.count, "state": dict(self.state)}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: Mapping) -> None:
+        """Continue from `sd` (a `state_dict()` of an optimizer over the
+        same trainable parameters)."""
+        if set(sd["state"]) != set(self.state):
+            raise KeyError("optimizer state names differ: "
+                           f"{sorted(set(sd['state']) ^ set(self.state))[:5]}")
+        for n, (mu, nu) in self.state.items():
+            mu.copy_(sd["state"][n][0])
+            nu.copy_(sd["state"][n][1])
+        self.count = int(sd["count"])
 
     def zero_grad(self) -> None:
         for _, p in self.params:

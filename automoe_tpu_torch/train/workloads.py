@@ -1,17 +1,22 @@
 """Workload definitions: model + loss closure per training pipeline (port
 of automoe_tpu/train/workloads.py). Ported so far: the BDD / CARLA
-detection expert (`bdd_expert_workload("detection")`)."""
+detection expert (`bdd_expert_workload("detection")`), the standalone
+trajectory policy (`policy_workload`, 4-conv backbone only) and the
+gating network over the full AutoMoE (`gating_workload`)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
+from automoe_tpu_torch.configs import AutoMoEConfig, load_model_config
 from automoe_tpu_torch.losses.detection import detection_set_loss
-from automoe_tpu_torch.models.automoe import init_parameters
+from automoe_tpu_torch.losses.trajectory import gating_losses, policy_losses
+from automoe_tpu_torch.models.automoe import AutoMoE, expert_param_mask, init_parameters
 from automoe_tpu_torch.models.experts import BDDDetectionExpert
+from automoe_tpu_torch.models.policy import TrajectoryPolicy
 
 # loss_fn(model, batch, train) -> (loss, metrics): batch holds tensors on
 # the model's device, images NHWC as the loaders give them
@@ -24,14 +29,24 @@ class Workload:
     name: str
     build_model: Callable[[], nn.Module]
     loss_fn: LossFn
+    # model -> {parameter name: trainable}; None trains every parameter
+    trainable_mask_fn: Optional[Callable[[nn.Module], Dict[str, bool]]] = None
+
+    def trainable_mask(self, model: nn.Module) -> Optional[Dict[str, bool]]:
+        return self.trainable_mask_fn(model) if self.trainable_mask_fn else None
 
     def init_model(self, seed: int, device) -> nn.Module:
         """The model with seeded weights (drawn on the CPU from one
         torch.Generator, so a seed gives the same weights on every
-        device), moved to `device`."""
+        device), moved to `device`. Parameters the trainable mask freezes
+        get requires_grad=False, so no backward runs through them; the
+        optimizer gives them no update (the JAX package's masked update)."""
         model = self.build_model()
         init_parameters(model, torch.Generator().manual_seed(seed))
-        return model.to(device)
+        mask = self.trainable_mask(model) or {}
+        for name, p in model.named_parameters():
+            p.requires_grad_(mask.get(name, True))
+        return model.to(device).train()
 
 
 def default_matcher(device) -> str:
@@ -76,3 +91,63 @@ def bdd_expert_workload(task: str, *, num_classes: Optional[int] = None,
 
     return Workload(name=f"bdd_{task}", build_model=lambda: BDDDetectionExpert(num_classes=C),
                     loss_fn=loss_fn)
+
+
+# ---------------------------------------------------------------------------
+# CARLA trajectory policy
+# ---------------------------------------------------------------------------
+
+def policy_workload(*, horizon: int = 8, context_dim: int = 0,
+                    trunk_depth: int = 0) -> Workload:
+    """Standalone TrajectoryPolicy training (the reference's
+    train_carla_policy.py): loss = ADE + 2 FDE + 0.2 speed L1 + 0.1
+    smoothness. With context_dim > 0 the batch's `context` vector feeds
+    the heads. The deep residual trunk (trunk_depth > 0) is not ported."""
+    if trunk_depth > 0:
+        raise NotImplementedError("the deep policy trunk (--trunk-depth) is not ported yet")
+
+    def loss_fn(model, batch, train):
+        ctx = batch.get("context") if context_dim > 0 else None
+        out = model(batch["image"].permute(0, 3, 1, 2), ctx)
+        res = policy_losses(out, batch["waypoints"], batch["speed"])
+        return res["loss"], {k: v for k, v in res.items() if k != "loss"}
+
+    return Workload(
+        name="carla_policy",
+        build_model=lambda: TrajectoryPolicy(horizon=horizon, context_dim=context_dim),
+        loss_fn=loss_fn)
+
+
+# ---------------------------------------------------------------------------
+# Gating network (full AutoMoE, frozen experts)
+# ---------------------------------------------------------------------------
+
+def pooled_feature_dim(ecfg) -> int:
+    """Width of an expert's parameter-free pooled extractor input (the
+    extractors' pooling before their MLPs)."""
+    if ecfg.type == "detection":
+        return ecfg.num_classes + 4
+    if ecfg.type in ("segmentation", "drivable"):
+        return ecfg.num_classes
+    return ecfg.num_queries * (ecfg.num_classes + ecfg.bbox_dim)
+
+
+def gating_workload(model_config: Any, *, loss_config: Optional[Mapping] = None,
+                    freeze_experts: bool = True) -> Workload:
+    """Gating training over the full AutoMoE (the reference's
+    train_gating_network.py): the experts are frozen (no gradient, no
+    update) while the extractors, context encoder, gating network and
+    policy head train. As in the JAX package's default, the frozen
+    experts still run in train mode: their BatchNorm normalises with batch
+    statistics and its running statistics move, and their dropout is live."""
+    cfg: AutoMoEConfig = load_model_config(model_config)
+    lcfg = dict(loss_config or {})
+
+    def loss_fn(model, batch, train):
+        res = gating_losses(model(batch), batch["waypoints"], batch["speed"], lcfg)
+        return res["total_loss"], {k: v for k, v in res.items() if k != "total_loss"}
+
+    return Workload(
+        name="gating", build_model=lambda: AutoMoE(cfg), loss_fn=loss_fn,
+        trainable_mask_fn=(lambda m: expert_param_mask(m.named_parameters()))
+        if freeze_experts else None)

@@ -15,7 +15,9 @@ Phases, each of which must pass (none is caught):
      path (serving/quant.py::s2d_stem_pool_unfused: cuDNN conv, quantize,
      K4) at the same shapes;
   3. K4, the int8 3x3/s2 pool kernel, against its plain version at
-     [8,128,128,256] and [128,128,128,256]: bit-exact; times;
+     [8,128,128,256] and [128,128,128,256]: bit-exact; the kernel's time
+     alone (three blocks of 50 back-to-back launches of the library's
+     entry point, the median block) and through its wrapper;
   4. the f32 engine on the card against the same engine on the CPU, on a
      small input (TF32 off): rtol 1e-3 / atol 1e-4;
   5. the bf16 engine at full width (default 4-expert config, 600x800
@@ -48,7 +50,19 @@ Phases, each of which must pass (none is caught):
      precision (cuDNN TF32): K1 launches once per train and eval step,
      losses finite, the train step's stream time (CUDA events around each
      step, host launch gaps included); then one epoch of `bdd --task
-     detection` on a BDD-format cache where PIL imports.
+     detection` on a BDD-format cache where PIL imports;
+ 12. the pipeline a port-trained expert takes to the server, through the
+     entry points, at PyTorch's default precision: `finetune-carla --task
+     detection` (256x256, batch 32, box cap 48) for 1 epoch with
+     --ckpt-root and --save-freq 1, then `--resume full --resume-from last
+     --epochs 2` (K1 launches for epoch 2's steps only; the optimizer step
+     count continues); `gating` at the default 4-expert config, 256x256,
+     batch 8, 1 epoch on a seeded CARLA sequence cache, with
+     `--expert-ckpts <detection best>,,,` (finite losses, expert-0
+     parameters equal to the detection checkpoint's, the step's stream
+     time, peak memory); `policy` at 256x256, batch 32, 1 epoch; then
+     `automoe-serve-torch --checkpoint <gating best> --quantize` answers 4
+     TCP requests with K3 launched once per server batch.
 
 Prints the card's name and power limit, one JSON line of kernel results,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a CUDA
@@ -196,9 +210,29 @@ def phase_k3(stem, gen):
     return res
 
 
+def pool_kernel_ms(stem, x, blocks: int = 3, iters: int = 50) -> list:
+    """K4 alone: the library's entry point launched back to back on a
+    pre-built input (no wrapper checks, no launch count), CUDA events
+    around each block of `iters` launches; the mean of each block."""
+    import torch
+
+    lib = stem.build()
+    B, H, W, C = x.shape
+    out = torch.empty((B, *stem.pool_out_hw(H, W), C), dtype=torch.int8, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        stem.raise_on(lib.automoe_maxpool3x3s2_int8(x.data_ptr(), out.data_ptr(), B, H, W, C,
+                                                    stream), "maxpool3x3s2_int8")
+
+    return [cuda_ms(launch, iters=iters) for _ in range(blocks)]
+
+
 def phase_k4(stem, gen):
     """No single PyTorch call computes it on CUDA: max_pool2d has no int8
-    kernel there, so the line's library_ms is null."""
+    kernel there, so the line's library_ms is null. Times: the kernel alone
+    (the median of three blocks of 50 back-to-back launches), its wrapper
+    (median of 30 calls, one event pair each), the plain version (mean of 5)."""
     import torch
 
     res = {}
@@ -211,8 +245,10 @@ def phase_k4(stem, gen):
         assert torch.equal(out, ref), "K4 differs from its plain version"
         # 8 int8 max operations per output element; the bytes bound it
         b_ms, b_by = bound(8.0 * out.numel(), PEAK_INT8_OPS, nbytes(x, out))
+        blocks = pool_kernel_ms(stem, x)
         res[B] = dict(max_abs_err=int((out.int() - ref.int()).abs().max()), diff_frac=0.0,
-                      ms=cuda_ms(lambda: stem.maxpool3x3s2_int8(x)),
+                      ms=float(np.median(blocks)), ms_blocks=blocks,
+                      wrapper_ms=cuda_ms_median(lambda: stem.maxpool3x3s2_int8(x), iters=30),
                       plain_ms=cuda_ms(lambda: stem.maxpool3x3s2_int8_plain(x), 5),
                       bound_ms=b_ms, bound_by=b_by)
         print(f"K4 B={B}: {res[B]}", flush=True)
@@ -378,6 +414,124 @@ def phase_train_cli(tmp: Path):
     return out
 
 
+def metrics_of(run_dir: Path):
+    recs = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    return ([r["train/loss_epoch"] for r in recs if "train/loss_epoch" in r],
+            [r["val/loss"] for r in recs if "val/loss" in r])
+
+
+def serve_four(argv, frames, speeds):
+    """automoe-serve-torch with `argv` answers 4 concurrent TCP requests;
+    returns (server batches, K3 launches counted from 0 around them)."""
+    from automoe_tpu_torch.ops import stem
+    from automoe_tpu_torch.serving import Client
+    from automoe_tpu_torch.serving.cli import main as serve_main
+
+    srv, batcher = serve_main(argv + ["--port", "0", "--max-batch", "4"], block=False)
+    try:
+        host, port = srv.server_address[:2]
+        answers = [None] * 4
+        stem.reset_launch_counts()
+
+        def ask(i):
+            c = Client(host, port)
+            answers[i] = c.infer(frames[i], float(speeds[i]))
+            c.close()
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        launches = stem.LAUNCHES["s2d_stem_pool_int8"]
+        n_batches = batcher.stats["batches"]
+    finally:
+        srv.shutdown()
+        batcher.close()
+    for a in answers:
+        assert a is not None and a["waypoints"].shape == (10, 2)
+        assert np.isfinite(a["waypoints"]).all()
+        np.testing.assert_allclose(a["expert_weights"].sum(), 1.0, rtol=1e-2)
+    assert launches == n_batches >= 1, (launches, n_batches)
+    return n_batches, launches
+
+
+def phase_pipeline(tmp: Path, frames, speeds):
+    """detection → checkpoint → resume → gating with the expert grafted →
+    policy → int8 serving of the gating checkpoint, through the entry
+    points at full width."""
+    import torch
+
+    from automoe_tpu_torch.ckpt import load_checkpoint
+    from automoe_tpu_torch.ops import auction_kernel as ak
+    from automoe_tpu_torch.tools.synth import synth_carla_detection, synth_carla_sequence
+    from automoe_tpu_torch.train.cli import main as train_main
+
+    ck, runs = tmp / "ckpt", tmp / "runs"
+    out = {}
+    det_root = synth_carla_detection(tmp / "det", n_per_split={"train": 64, "val": 32},
+                                     size=256, max_boxes=20, seed=SEED)
+    det = ["finetune-carla", "--task", "detection", "--data-root", str(det_root),
+           "--image-size", "256", "--box-cap", "48", "--batch-size", "32", "--save-freq", "1",
+           "--ckpt-root", str(ck), "--runs-root", str(runs), "--run-name", "det"]
+    ak.reset_launch_counts()
+    train_main(det + ["--epochs", "1"])
+    first = ak.LAUNCHES["auction_solve"]
+    last1 = load_checkpoint(ck / "bdd_detection" / "det" / "last.pt")
+    ak.reset_launch_counts()
+    res = train_main(det + ["--epochs", "2", "--resume", "full", "--resume-from", "last"])
+    resumed = ak.LAUNCHES["auction_solve"]
+    last2 = load_checkpoint(ck / "bdd_detection" / "det" / "last.pt")
+    steps = 64 // 32
+    # K1 once per train and eval step, of the resumed epoch only
+    assert first == resumed == steps + 1, (first, resumed)
+    assert (last1["epoch"], last1["step"]) == (0, steps), (last1["epoch"], last1["step"])
+    assert (last2["epoch"], last2["step"]) == (1, 2 * steps), (last2["epoch"], last2["step"])
+    losses, vals = metrics_of(runs / "bdd_detection_det")
+    assert len(losses) == len(vals) == 2 and np.isfinite(losses + vals).all()
+    out["detection_resume"] = dict(launches_epoch1=first, launches_resumed_epoch2=resumed,
+                                   step_after_epoch1=last1["step"],
+                                   step_after_resume=last2["step"], train_loss_epoch=losses,
+                                   val_loss=vals, step_ms_p50=res["step_ms_p50"])
+    print(f"pipeline detection + resume: {out['detection_resume']}", flush=True)
+
+    # 2 runs of 74 frames: 128 gating windows (horizon 10: 16 steps at batch
+    # 8), 132 policy ones (horizon 8: 4 steps at batch 32)
+    seq = synth_carla_sequence(tmp / "seq", n_per_split={"train": 148, "val": 26}, runs=2,
+                               size=256, seed=SEED)
+    det_best = ck / "bdd_detection" / "det" / "best.pt"
+    for cmd, batch, extra in (("gating", 8, ["--expert-ckpts", f"{det_best},,,"]),
+                              ("policy", 32, [])):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = train_main([cmd, "--data-root", str(seq), "--image-size", "256", "--batch-size",
+                          str(batch), "--epochs", "1", "--ckpt-root", str(ck), "--runs-root",
+                          str(runs), "--run-name", cmd, *extra])
+        peak = torch.cuda.max_memory_allocated()
+        name = "gating" if cmd == "gating" else "carla_policy"
+        losses, vals = metrics_of(runs / f"{name}_{cmd}")
+        assert len(losses) == len(vals) == 1 and np.isfinite(losses + vals).all(), cmd
+        out[cmd] = dict(batch=batch, train_loss_epoch=losses, val_loss=vals,
+                        step_ms_p50=res["step_ms_p50"], step_ms_mean=res["step_ms_mean"],
+                        timed_steps=res["timed_steps"],
+                        samples_per_s=batch * 1e3 / res["step_ms_p50"],
+                        peak_memory_bytes=int(peak))
+        print(f"pipeline {cmd}: {out[cmd]}", flush=True)
+    gating_best = ck / "gating" / "gating" / "best.pt"
+    det_sd = load_checkpoint(det_best)["model_state_dict"]
+    g_sd = load_checkpoint(gating_best)["model_state_dict"]
+    stats = ("running_mean", "running_var", "num_batches_tracked")
+    frozen = [k for k in det_sd if not k.endswith(stats)]
+    assert all(torch.equal(g_sd[f"experts.0.{k}"], det_sd[k]) for k in frozen)
+    out["gating"]["expert0_params_equal_detection_best"] = len(frozen)
+
+    n_batches, launches = serve_four(["--checkpoint", str(gating_best), "--quantize"],
+                                     frames, speeds)
+    out["serve_gating_int8"] = dict(batches=n_batches, k3_launches=launches)
+    print(f"pipeline serving of the gating checkpoint: {out['serve_gating_int8']}", flush=True)
+    return out
+
+
 def rel_err(a, b) -> float:
     a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
     return float(np.abs(a - b).mean() / (np.abs(a).mean() + 1e-12))
@@ -412,8 +566,6 @@ def main() -> int:
     from automoe_tpu_torch.configs import default_model_config
     from automoe_tpu_torch.infer import InferenceEngine
     from automoe_tpu_torch.ops import auction_kernel, stem
-    from automoe_tpu_torch.serving import Client
-    from automoe_tpu_torch.serving.cli import main as serve_main
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -486,33 +638,7 @@ def main() -> int:
         del eng
 
     # 7. serving through the CLI entry point, 4 concurrent requests
-    srv, batcher = serve_main(["--quantize", "--port", "0", "--max-batch", "4"],
-                              block=False)
-    try:
-        host, port = srv.server_address[:2]
-        answers = [None] * 4
-        stem.reset_launch_counts()
-
-        def ask(i):
-            c = Client(host, port)
-            answers[i] = c.infer(frames[i], float(speeds[i]))
-            c.close()
-
-        threads = [threading.Thread(target=ask, args=(i,)) for i in range(4)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=300)
-        launches["s2d_stem_pool_int8"] = stem.LAUNCHES["s2d_stem_pool_int8"]
-        n_batches = batcher.stats["batches"]
-    finally:
-        srv.shutdown()
-        batcher.close()
-    for a in answers:
-        assert a is not None and a["waypoints"].shape == (10, 2)
-        assert np.isfinite(a["waypoints"]).all()
-        np.testing.assert_allclose(a["expert_weights"].sum(), 1.0, rtol=1e-2)
-    assert launches["s2d_stem_pool_int8"] == n_batches >= 1, (launches, n_batches)
+    n_batches, launches["s2d_stem_pool_int8"] = serve_four(["--quantize"], frames, speeds)
     print(f"serving: 4 answers in {n_batches} batches", flush=True)
 
     # 8. the auction kernel's build (started in phase 1)
@@ -531,6 +657,10 @@ def main() -> int:
         train_cli = phase_train_cli(Path(tmp))
     launches["auction_solve"] = train_cli["finetune-carla"]["launches"]
 
+    # 12. detection → resume → gating → policy → int8 serving
+    with tempfile.TemporaryDirectory() as tmp:
+        pipeline = phase_pipeline(Path(tmp), frames, speeds)
+
     src = "automoe_tpu_torch/csrc/stem.cu"
     main_, big = k3[B_MAIN], k3[128]
     kernels = [{
@@ -548,6 +678,10 @@ def main() -> int:
         "wrapper_ms": main_["wrapper_ms"],
         "mixed_sign_inv_max_abs_err": main_["mixed_sign_inv_max_abs_err"],
         "mixed_sign_inv_diff_frac": main_["mixed_sign_inv_diff_frac"],
+        # each main path, counted from 0 around it
+        "launches_by_path": {"serve (phase 7)": launches["s2d_stem_pool_int8"],
+                             "serve the gating checkpoint (phase 12)":
+                                 pipeline["serve_gating_int8"]["k3_launches"]},
         "b128": {k: big[k] for k in ("ms", "ms_blocks", "wrapper_ms", "plain_ms", "unfused_ms",
                                      "bound_ms", "max_abs_err", "diff_frac",
                                      "mixed_sign_inv_max_abs_err",
@@ -563,8 +697,11 @@ def main() -> int:
         "bound_by": main_["bound_by"],
         # CUDA max_pool2d has no int8 kernel
         "library_ms": None,
-        "shape_batch": B_MAIN,
-        "b128": {k: big[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err", "diff_frac")},
+        "shape_batch": B_MAIN, "ms_blocks": main_["ms_blocks"],
+        "wrapper_ms": main_["wrapper_ms"],
+        "launches_by_path": {"int8 engine, pool stem (phase 6)": launches["maxpool3x3s2_int8"]},
+        "b128": {k: big[k] for k in ("ms", "ms_blocks", "wrapper_ms", "plain_ms", "bound_ms",
+                                     "max_abs_err", "diff_frac")},
     })
     div = k12["diverse"]
     kernels.append({
@@ -578,6 +715,10 @@ def main() -> int:
         "library_ms": None,
         "shape": [32, 48, 64], "escalated": div["escalated"], "rounds_max": div["rounds_max"],
         "ms_blocks": div["ms_blocks"], "wrapper_ms": div["wrapper_ms"],
+        "launches_by_path": {
+            "finetune-carla, 2 epochs (phase 11)": launches["auction_solve"],
+            "finetune-carla resumed for epoch 2 (phase 12)":
+                pipeline["detection_resume"]["launches_resumed_epoch2"]},
         **{name: {k: k12[name][k] for k in ("ms", "ms_blocks", "wrapper_ms", "plain_ms",
                                             "bound_ms", "max_abs_err", "escalated",
                                             "rounds_max", "jv_scans_max", "max_iters")}
@@ -586,6 +727,7 @@ def main() -> int:
     print(json.dumps({"engine_step_ms_b8": steps}), flush=True)
     print(json.dumps({"train_step_cuda_vs_cpu": train_step, "train_cli": train_cli}),
           flush=True)
+    print(json.dumps({"pipeline": pipeline}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -268,7 +268,107 @@ def test_train_cli_on_cuda_launches_k1_per_step(gen, tmp_path):
     n = ak.LAUNCHES["auction_solve"]
     res = main(["finetune-carla", "--task", "detection", "--data-root", str(root),
                 "--image-size", "64", "--box-cap", "4", "--batch-size", "2", "--epochs", "2",
-                "--num-workers", "1", "--runs-root", str(tmp_path / "runs")])
+                "--num-workers", "1", "--runs-root", str(tmp_path / "runs"),
+                "--ckpt-root", str(tmp_path / "ckpt")])
     # 2 epochs x (2 train steps + 2 val steps, the second a padded tail)
     assert ak.LAUNCHES["auction_solve"] - n == 8
     assert np.isfinite(res["best_val_loss"]) and res["device_timed"] == 1.0
+
+
+def test_resume_on_cuda(gen, tmp_path):
+    """finetune-carla for 1 epoch with checkpoints on the card, then
+    --resume full to 2 epochs: K1 launches for epoch 2's steps only, and
+    the step count continues."""
+    from automoe_tpu_torch.ckpt import load_checkpoint
+    from automoe_tpu_torch.ops import auction_kernel as ak
+    from automoe_tpu_torch.tools.synth import synth_carla_detection
+    from automoe_tpu_torch.train import cli
+
+    root = synth_carla_detection(tmp_path / "data", n_per_split={"train": 4, "val": 2},
+                                 size=64, max_boxes=3)
+    argv = ["finetune-carla", "--task", "detection", "--data-root", str(root),
+            "--image-size", "64", "--box-cap", "4", "--batch-size", "2", "--num-workers", "1",
+            "--runs-root", str(tmp_path / "runs"), "--ckpt-root", str(tmp_path / "ckpt")]
+    cli.main(argv + ["--epochs", "1"])
+    last = load_checkpoint(tmp_path / "ckpt" / "bdd_detection" / "run" / "last.pt")
+    assert (last["epoch"], last["step"]) == (0, 2)
+
+    n = ak.LAUNCHES["auction_solve"]
+    res = cli.main(argv + ["--epochs", "2", "--resume", "full"])
+    # epoch 2 only: 2 train steps + 1 val step
+    assert ak.LAUNCHES["auction_solve"] - n == 3 and np.isfinite(res["best_val_loss"])
+    last2 = load_checkpoint(tmp_path / "ckpt" / "bdd_detection" / "run" / "last.pt")
+    assert (last2["epoch"], last2["step"]) == (1, 4)
+
+
+def test_restore_on_cuda_equals_the_file(gen, tmp_path):
+    """A `full` restore onto the card reproduces the checkpoint exactly:
+    weights, BatchNorm statistics, optimizer moments and count."""
+    from automoe_tpu_torch.ckpt import CheckpointManager, load_checkpoint
+    from automoe_tpu_torch.train.state import make_optimizer
+    from automoe_tpu_torch.train.workloads import policy_workload
+
+    wl = policy_workload(horizon=4)
+    model = wl.init_model(1, torch.device("cuda"))
+    opt = make_optimizer(model.named_parameters(), learning_rate=1e-3, total_steps=2)
+    out = model(torch.randn(2, 3, 64, 64, device="cuda", generator=gen))
+    (out["waypoints"].sum() + out["speed"].sum()).backward()
+    opt.step()
+    mgr = CheckpointManager(str(tmp_path), wl.name, "r", async_save=True)
+    mgr.save_epoch(model, opt, 0, 1.0)
+    other = wl.init_model(2, torch.device("cuda"))
+    opt2 = make_optimizer(other.named_parameters(), learning_rate=1e-3, total_steps=2)
+    assert mgr.restore(other, opt2, which="last", mode="full") == (0, 0)
+    payload = load_checkpoint(mgr.path("last"))
+    for k, v in other.state_dict().items():
+        assert v.device.type == "cuda" and torch.equal(v.cpu(), payload["model_state_dict"][k]), k
+    assert opt2.count == opt.count == 1
+    for n, (mu, nu) in opt.state.items():
+        assert torch.equal(opt2.state[n][0], mu) and torch.equal(opt2.state[n][1], nu), n
+
+
+def test_gating_step_cuda_matches_cpu(gen):
+    """One SGD gating step over a small AutoMoE, card against CPU, same
+    weights, dropout off, TF32 off: loss within rtol 1e-4; parameters and
+    BatchNorm running statistics within rtol 1e-3 / atol 1e-5; expert
+    parameters unchanged on both."""
+    from automoe_tpu_torch.train.state import make_optimizer
+    from automoe_tpu_torch.train.step import make_train_step
+    from automoe_tpu_torch.train.workloads import gating_workload
+
+    cfg = {"experts": [{"type": "detection", "num_classes": 10},
+                       {"type": "segmentation", "num_classes": 19},
+                       {"type": "drivable", "num_classes": 3},
+                       {"type": "nuscenes", "num_queries": 8, "bbox_dim": 4, "fusion": "sum"}],
+           "gating": {"top_k": 0, "noise_scale": 0.0}, "context": {"type": "simple"},
+           "policy": {"num_waypoints": 4}}
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.normal(size=(2, 64, 64, 3)).astype(np.float32),
+             "speed": rng.uniform(0, 30, (2, 4)).astype(np.float32),
+             "steering": rng.normal(size=(2, 4)).astype(np.float32) * 0.2,
+             "throttle": rng.uniform(0, 1, (2, 4)).astype(np.float32),
+             "brake": np.zeros((2, 4), np.float32),
+             "waypoints": rng.normal(size=(2, 4, 2)).astype(np.float32)}
+    wl = gating_workload(cfg)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = wl.init_model(0, torch.device(dev))
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        before = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+        opt = make_optimizer(model.named_parameters(), learning_rate=1e-2, weight_decay=0.0,
+                             total_steps=1, optimizer="sgd",
+                             trainable_mask=wl.trainable_mask(model))
+        loss = make_train_step(wl.loss_fn)(model, opt, {k: torch.from_numpy(v).to(dev)
+                                                        for k, v in batch.items()})["loss"]
+        runs[dev] = (float(loss), {k: v.detach().cpu() for k, v in model.state_dict().items()})
+        same = {k: torch.equal(v.detach().cpu(), before[k]) for k, v in model.named_parameters()}
+        assert all(v for k, v in same.items() if k.startswith("experts."))
+        # (a conv bias ahead of train-mode BatchNorm has a zero gradient)
+        assert not all(v for k, v in same.items() if not k.startswith("experts."))
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    for k, v in runs["cpu"][1].items():
+        if v.is_floating_point():
+            np.testing.assert_allclose(runs["cuda"][1][k].numpy(), v.numpy(), rtol=1e-3,
+                                       atol=1e-5, err_msg=k)

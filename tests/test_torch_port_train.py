@@ -250,7 +250,8 @@ def test_train_cli_finetune_carla_on_cpu(tmp_path):
     res = main(["finetune-carla", "--task", "detection", "--data-root", str(root),
                 "--image-size", "64", "--box-cap", "4", "--batch-size", "2", "--epochs", "2",
                 "--num-workers", "1", "--runs-root", str(tmp_path / "runs"),
-                "--matcher", "auction_kernel", "--device", "cpu"])
+                "--ckpt-root", str(tmp_path / "ckpt"), "--matcher", "auction_kernel",
+                "--device", "cpu"])
     assert np.isfinite(res["best_val_loss"])
     assert auction_kernel.LAUNCHES["auction_solve"] == n  # plain version on the CPU
     recs = [json.loads(line) for line in
@@ -266,8 +267,13 @@ def test_train_cli_finetune_carla_on_cpu(tmp_path):
     ["nuscenes"],
     ["bdd", "--task", "segmentation", "--device", "cpu"],
     ["bdd", "--task", "detection", "--bf16"],
-    ["finetune-carla", "--task", "detection", "--resume", "full"],
-], ids=["subcommand", "task", "flag", "flag-with-value"])
+    ["finetune-carla", "--task", "detection", "--ema-decay", "0.999"],
+    ["preset", "carla_finetune_v5e"],
+    ["policy", "--trunk-depth", "4"],
+    ["gating", "--cache-expert-features"],
+    ["gating", "--parallelism", "ep"],
+], ids=["subcommand", "task", "flag", "flag-with-value", "preset", "policy-deep-trunk",
+        "gating-feature-cache", "gating-ep"])
 def test_train_cli_rejects_what_is_not_ported(argv, tmp_path):
     from automoe_tpu_torch.train.cli import main
 
