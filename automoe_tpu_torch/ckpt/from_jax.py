@@ -30,6 +30,11 @@ class _Sink:
         if "bias" in tree:
             self.out[f"{name}.bias"] = _t(tree["bias"])
 
+    def conv1d(self, name: str, tree: Dict[str, Any]):
+        """A per-point Dense kernel [in,out] → Conv1d weight [out,in,1]."""
+        self.out[f"{name}.weight"] = _t(np.asarray(tree["kernel"]).T[:, :, None])
+        self.out[f"{name}.bias"] = _t(tree["bias"])
+
     def linear(self, name: str, tree: Dict[str, Any]):
         self.out[f"{name}.weight"] = _t(np.asarray(tree["kernel"]).T)
         if "bias" in tree:
@@ -63,6 +68,22 @@ def _resnet(sink: _Sink, prefix: str, p: Dict, s: Dict):
                           bs.get("downsample_bn"))
 
 
+def _point_mlp(sink: _Sink, prefix: str, p: Dict, s: Dict):
+    """The layers a TNet and a PointNet share: conv1..3, fc1..3, bn1..5."""
+    for j in (1, 2, 3):
+        sink.conv1d(f"{prefix}conv{j}", p[f"conv{j}"])
+        sink.linear(f"{prefix}fc{j}", p[f"fc{j}"])
+    for j in range(1, 6):
+        sink.norm(f"{prefix}bn{j}", p[f"bn{j}"], s.get(f"bn{j}"))
+
+
+def _pointnet(sink: _Sink, prefix: str, p: Dict, s: Dict):
+    _point_mlp(sink, prefix, p, s)
+    for t in ("input_transform", "feature_transform"):
+        if t in p:
+            _point_mlp(sink, f"{prefix}{t}.", p[t], s.get(t, {}))
+
+
 def _expert(sink: _Sink, expert_type: str, prefix: str, p: Dict, s: Dict):
     if expert_type in ("detection", "segmentation", "drivable"):
         _resnet(sink, f"{prefix}backbone.", p["backbone"], s.get("backbone", {}))
@@ -73,11 +94,23 @@ def _expert(sink: _Sink, expert_type: str, prefix: str, p: Dict, s: Dict):
         _resnet(sink, f"{prefix}image_backbone.", p["image_backbone"],
                 s.get("image_backbone", {}))
         sink.linear(f"{prefix}image_projection", p["image_projection"])
+        if "lidar_backbone" in p:
+            _pointnet(sink, f"{prefix}lidar_backbone.", p["lidar_backbone"],
+                      s.get("lidar_backbone", {}))
         sink.out[f"{prefix}query_embed.weight"] = _t(p["query_embed"])
         sink.linear(f"{prefix}decoder.0", p["decoder_fc1"])
         sink.linear(f"{prefix}decoder.3", p["decoder_fc2"])
         sink.linear(f"{prefix}class_head", p["class_head"])
         sink.linear(f"{prefix}bbox_head", p["bbox_head"])
+    elif expert_type == "nuscenes_2d":  # NuScenesImage2DHead
+        _resnet(sink, f"{prefix}image_backbone.", p["image_backbone"],
+                s.get("image_backbone", {}))
+        sink.linear(f"{prefix}image_projection", p["image_projection"])
+        sink.out[f"{prefix}query_embed.weight"] = _t(p["query_embed"])
+        sink.linear(f"{prefix}mlp.0", p["mlp_fc1"])
+        sink.linear(f"{prefix}mlp.3", p["mlp_fc2"])
+        sink.linear(f"{prefix}class_head", p["class_head"])
+        sink.linear(f"{prefix}box_head", p["box_head"])
     else:
         raise ValueError(expert_type)
 
@@ -86,7 +119,8 @@ def expert_state_dict_from_jax(variables_np: Dict[str, Any],
                                expert_type: str) -> Dict[str, torch.Tensor]:
     """A standalone JAX expert's `{"params", "batch_stats"}` (numpy leaves,
     e.g. a trained BDDDetectionExpert) → the port's expert state dict
-    (`backbone.*`, `head.*` / `decoder.*`, …)."""
+    (`backbone.*`, `head.*` / `decoder.*`, …). expert_type is a config
+    type, or "nuscenes_2d" for a NuScenesImage2DHead."""
     sink = _Sink()
     _expert(sink, expert_type, "", variables_np["params"],
             variables_np.get("batch_stats", {}))

@@ -1,6 +1,7 @@
-"""Fixed-shape padded collates (port of automoe_tpu/data/collate.py, the
-detection part): boxes pad to a static cap, labels with -1; over-cap
-boxes are truncated."""
+"""Fixed-shape padded collates (port of automoe_tpu/data/collate.py):
+boxes pad to a static cap, labels with -1, LiDAR with zero points;
+over-cap boxes and points are truncated. Padded points are not masked
+later: the PointNet's max-pool sees them, as in the JAX package."""
 from __future__ import annotations
 
 import warnings
@@ -18,6 +19,14 @@ def pad_boxes(boxes: np.ndarray, labels: np.ndarray, cap: int, box_dim: int = 4,
         out_b[:n] = boxes[:n]
         out_l[:n] = labels[:n]
     return out_b, out_l
+
+
+def pad_points(points: np.ndarray, cap: int, dim: int = 3) -> np.ndarray:
+    out = np.zeros((cap, dim), np.float32)
+    n = min(len(points), cap)
+    if n:
+        out[:n] = points[:n]
+    return out
 
 
 def stack_batch(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:

@@ -18,19 +18,21 @@ from automoe_tpu_torch.ops.boxes import box_convert
 from automoe_tpu_torch.ops.masked import masked_cross_entropy, masked_smooth_l1
 
 
-def _get_matcher(name: str):
-    """'hungarian' (exact, scipy on the host), 'auction' (vectorised, greedy
-    completion) or 'auction_kernel' (the CUDA auction with in-kernel exact
-    JV escalation; its plain version on the CPU). The auction matchers take
-    an iteration-cap suffix ('auction_kernel:256'). 'auction_pallas' is
-    accepted as the JAX package's name of 'auction_kernel'."""
+def get_matcher(name: str):
+    """'hungarian' (exact on the tensors' device: K2 alone on the card,
+    scipy on the CPU; ops/matching.py::exact_match), 'auction' (vectorised,
+    greedy completion) or 'auction_kernel' (the CUDA auction with in-kernel
+    exact JV escalation; its plain version on the CPU). The auction
+    matchers take an iteration-cap suffix ('auction_kernel:256').
+    'auction_pallas' is accepted as the JAX package's name of
+    'auction_kernel'."""
     base, _, iters = name.partition(":")
     if iters and base == "hungarian":
         raise ValueError("hungarian matcher has no iteration cap")
     if base == "hungarian":
-        from automoe_tpu_torch.ops.matching import hungarian_match
+        from automoe_tpu_torch.ops.matching import exact_match
 
-        return hungarian_match
+        return exact_match
     if base == "auction":
         from automoe_tpu_torch.ops.auction import auction_match as fn
     elif base in ("auction_kernel", "auction_pallas"):
@@ -75,7 +77,7 @@ def detection_set_loss(class_logits: torch.Tensor, bbox_deltas: torch.Tensor,
     pred_logits = class_logits.permute(0, 2, 3, 1).reshape(B, Q, C)
     pred_boxes = bbox_deltas.permute(0, 2, 3, 1).reshape(B, Q, 4)
     tgt_cxcywh = box_convert(gt_boxes_xyxy.float(), "xyxy", "cxcywh")
-    query_idx, valid = _get_matcher(matcher)(  # every matcher runs without gradients
+    query_idx, valid = get_matcher(matcher)(  # every matcher runs without gradients
         pred_logits, pred_boxes, tgt_cxcywh, gt_labels,
         cost_class=cost_class, cost_bbox=cost_bbox, cost_giou=cost_giou)
     target_classes, target_boxes = scatter_matched_targets(

@@ -4,6 +4,9 @@ from automoe_tpu_torch.models.experts import (  # noqa: F401
     BDDDrivableExpert,
     BDDSegmentationExpert,
     NuScenesExpert,
+    NuScenesImage2DHead,
+    PointNet,
+    TNet,
 )
 from automoe_tpu_torch.models.extractors import (  # noqa: F401
     DetectionExpertExtractor,

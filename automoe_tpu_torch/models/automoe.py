@@ -77,6 +77,16 @@ def simple_context(batch: Dict[str, torch.Tensor], B: int, dtype, device):
     ]
 
 
+def lidar_or_zeros(batch: Dict[str, torch.Tensor], B: int, dtype, device) -> torch.Tensor:
+    """The batch's [B,P,3] points, or 1000 zero points per frame when it
+    has none (camera-only serving), as the JAX model feeds a LiDAR
+    nuScenes expert."""
+    lidar = batch.get("lidar")
+    if lidar is None:
+        return torch.zeros((B, 1000, 3), dtype=dtype, device=device)
+    return lidar
+
+
 class AutoMoE(nn.Module):
     """fast_gating_pool: seg/drivable experts skip the full-res bilinear
     upsample and their gating extractors pool the low-res logits with
@@ -153,7 +163,11 @@ class AutoMoE(nn.Module):
         context_features = self.context_extractor(
             *simple_context(batch, B, image.dtype, image.device)
         )
-        expert_outputs = [expert(image) for expert in self.experts]
+        expert_outputs = [
+            expert(image, lidar_or_zeros(batch, B, image.dtype, image.device))
+            if ecfg.type == "nuscenes" and ecfg.use_lidar else expert(image)
+            for ecfg, expert in zip(self.config.experts, self.experts)
+        ]
         features = self.extractor_features(expert_outputs, image.shape[2:])
         out = self.head_outputs(image, features, context_features)
         out["expert_outputs"] = expert_outputs
@@ -167,17 +181,17 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     drawn on the CPU from `generator`, so a seed gives the same weights on
     every device."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             m.weight.copy_(torch.empty(m.weight.shape).uniform_(-bound, bound, generator=generator))
             if m.bias is not None:
                 m.bias.copy_(torch.empty(m.bias.shape).uniform_(-bound, bound, generator=generator))
         elif isinstance(m, nn.Embedding):
             m.weight.copy_(torch.randn(m.weight.shape, generator=generator))
-        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+        elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d, nn.LayerNorm)):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
-            if isinstance(m, nn.BatchNorm2d):
+            if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
                 m.reset_running_stats()
 
 

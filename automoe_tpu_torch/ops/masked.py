@@ -11,13 +11,14 @@ import torch
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                         ignore_index: int) -> torch.Tensor:
-    """Mean CE over positions whose label != ignore_index.
-    logits [..., C]; labels [...] int."""
+                         ignore_index: int, dim: int = -1) -> torch.Tensor:
+    """Mean CE over positions whose label != ignore_index. logits hold
+    the classes on `dim` ([..., C] by default, [B,C,H,W] with dim=1);
+    labels are the logits' shape without that dim, int."""
     mask = labels != ignore_index
     safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    logp = torch.log_softmax(logits.float(), dim=dim)
+    nll = -torch.gather(logp, dim, safe.unsqueeze(dim)).squeeze(dim)
     denom = torch.clamp(mask.sum(), min=1)
     return torch.where(mask, nll, torch.zeros_like(nll)).sum() / denom
 

@@ -2,9 +2,9 @@
 
 `match_cost_matrix` is the JAX package's cost, written over leading batch
 dims. `hungarian_match` is exact: scipy's `linear_sum_assignment` on the
-host copy of the cost matrix (the JAX package runs optax's on-device
-Hungarian). It is off the default path (the auction matchers are the
-defaults) and serves the tests as their oracle.
+host copy of the cost matrix, and the tests' oracle. `exact_match` is the
+matcher name 'hungarian' (the JAX package's on-device optax Hungarian):
+exact on the tensors' own device, K2 alone on the card, scipy on the CPU.
 """
 from __future__ import annotations
 
@@ -70,3 +70,18 @@ def hungarian_match(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
         rows, cols = linear_sum_assignment(cost[b])
         query_idx[b, cols] = rows
     return (torch.from_numpy(query_idx).to(tgt_labels.device), tgt_labels >= 0)
+
+
+@torch.no_grad()
+def exact_match(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
+                tgt_boxes: torch.Tensor, tgt_labels: torch.Tensor, **costs):
+    """Exact matching where the tensors lie: on the card the CUDA kernel's
+    exact JV alone (`auction_match_kernel(max_iters=0)`: no auction rounds,
+    every element through K2, no host copy), on the CPU `hungarian_match`.
+    Both are exact; they can differ only on exact cost ties."""
+    if pred_logits.is_cuda:
+        from automoe_tpu_torch.ops.auction_kernel import auction_match_kernel
+
+        return auction_match_kernel(pred_logits, pred_boxes, tgt_boxes, tgt_labels,
+                                    max_iters=0, **costs)
+    return hungarian_match(pred_logits, pred_boxes, tgt_boxes, tgt_labels, **costs)

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from automoe_tpu_torch.configs import load_model_config
-from automoe_tpu_torch.models.automoe import simple_context
+from automoe_tpu_torch.models.automoe import lidar_or_zeros, simple_context
 from automoe_tpu_torch.models.resnet import STAGES
 from automoe_tpu_torch.ops.stem import (
     maxpool3x3s2_int8,
@@ -369,11 +369,10 @@ def make_quant_forward(config, scales: List[Dict[str, float]], dtype=torch.bfloa
     """fn(model, qexperts, batch) -> AutoMoE serving outputs with int8
     expert trunks; heads, extractors, gating and policy are `model`'s own
     modules (cast to `dtype`), with the fast gating pool. `qexperts`
-    comes from `prepare_qexperts`. The lidar branch is not ported."""
+    comes from `prepare_qexperts`. A LiDAR nuScenes expert runs its
+    PointNet in `dtype` beside the int8 image trunk, on the batch's points
+    or, without them, on zero points as the float model does."""
     config = load_model_config(config)
-    for ecfg in config.experts:
-        if ecfg.type == "nuscenes" and ecfg.use_lidar:
-            raise NotImplementedError("the lidar branch is not ported yet")
 
     @torch.no_grad()
     def forward(model, qexperts: Dict, batch: Dict[str, torch.Tensor]):
@@ -392,7 +391,9 @@ def make_quant_forward(config, scales: List[Dict[str, float]], dtype=torch.bfloa
                 qexperts["trunks"][i], scales[i], stems[i], dtype=dtype
             ).permute(0, 3, 1, 2)  # [B,512,h,w]
             if ecfg.type == "nuscenes":
-                expert_outputs.append(expert.heads(feats.mean(dim=(2, 3))))
+                lidar = (lidar_or_zeros(batch, B, dtype, image.device)
+                         if ecfg.use_lidar else None)
+                expert_outputs.append(expert.heads(feats.mean(dim=(2, 3)), lidar))
             else:
                 expert_outputs.append(expert.heads(feats))
         features = model.extractor_features(expert_outputs, image.shape[2:])

@@ -15,6 +15,8 @@ times its entry point launched back to back on the same pre-masked
 inputs: five blocks of 50 launches, the builds interleaved block by block
 (the order reversed every other round), the median block per build.
 Prints JSON lines, the card's name and power limit first.
+`nuscenes_regimes` gives the nuScenes trainers' shapes (Q=100, and Q=196
+with K2 alone) to `chip_smoke.py` and the `cuda` tests.
 """
 from __future__ import annotations
 
@@ -61,14 +63,91 @@ def auction_regimes(gen):
     jv_valid[3, ::2] = False
     jv_valid[4, 40:] = False
 
-    def eps_of(b, v):  # the matcher's eps (ops/auction_kernel.py)
-        b = torch.where(v[..., None], b, torch.zeros_like(b))
-        return (b.amax((1, 2)) - b.amin((1, 2))).clamp(min=1e-3) * 1e-6 / N
-
     all_valid = torch.ones_like(valid)
-    return [("diverse", benefit, valid, eps_of(benefit, valid), 128),
-            ("degenerate", deg, all_valid, eps_of(deg, all_valid), 128),
-            ("jv", benefit, jv_valid, eps_of(benefit, jv_valid), 0)]
+    return [("diverse", benefit, valid, _eps_of(benefit, valid), 128),
+            ("degenerate", deg, all_valid, _eps_of(deg, all_valid), 128),
+            ("jv", benefit, jv_valid, _eps_of(benefit, jv_valid), 0)]
+
+
+def _eps_of(b, v):
+    """The matcher's eps (ops/auction_kernel.py::auction_match_kernel)."""
+    import torch
+
+    b = torch.where(v[..., None], b, torch.zeros_like(b))
+    return (b.amax((1, 2)) - b.amin((1, 2))).clamp(min=1e-3) * 1e-6 / v.shape[1]
+
+
+def nuscenes_regimes(gen):
+    """The shapes the nuScenes trainers give K1 + K2, on the card:
+    (name, benefit, valid, eps, max_iters). `nuscenes` training matches
+    B=32 samples, N=48 targets (the CLI's box cap) and Q=100 queries on
+    7-dim boxes (BEV GIoU in the cost), targets of positive sizes: diverse
+    predictions, clustered ones, an untrained head's raw outputs, and
+    negative sizes on both sides (costs ~1e10), each element with 1..48
+    real targets, cap 128. `nuscenes-2d` matches exactly: B=16, N=48,
+    Q=196 on cxcywh boxes, max_iters=0 (K2 alone). On the generator's
+    device."""
+    import torch
+
+    from automoe_tpu_torch.ops.matching import match_cost_matrix
+
+    dev = gen.device
+
+    def sized(boxes):
+        """Positive sizes: cxcywh boxes, or [cx,cy,cz,w,l,h,yaw] with w, l, h
+        > 0, as real targets have them."""
+        if boxes.shape[-1] == 4:
+            return boxes.abs() + 0.5
+        return torch.cat([boxes[..., :3], boxes[..., 3:6].abs() + 0.5, boxes[..., 6:]], -1)
+
+    def targets(B, N, D, C=10):
+        tb = sized(torch.randn(B, N, D, device=dev, generator=gen) * 3)
+        n = torch.randint(1, N + 1, (B, 1), device=dev, generator=gen)
+        tl = torch.randint(0, C, (B, N), device=dev, generator=gen)
+        tl = torch.where(torch.arange(N, device=dev) < n, tl, -1)
+        return tb, tl
+
+    out = []
+    B, N, Q, C = 32, 48, 100, 10
+    tb, tl = targets(B, N, 7)
+    for name, spread in (("nuscenes-diverse", 1.0), ("nuscenes-degenerate", 1e-3)):
+        logits = (torch.randn(1, 1, C, device=dev, generator=gen)
+                  + spread * torch.randn(B, Q, C, device=dev, generator=gen))
+        boxes = sized(torch.randn(1, 1, 7, device=dev, generator=gen)
+                      + 3 * spread * torch.randn(B, Q, 7, device=dev, generator=gen))
+        benefit = -match_cost_matrix(logits, boxes, tb, tl).transpose(1, 2).contiguous()
+        out.append((name, benefit, tl >= 0, _eps_of(benefit, tl >= 0), 128))
+    B, Q = 16, 196
+    tb, tl = targets(B, N, 4)
+    logits = torch.randn(B, Q, C, device=dev, generator=gen)
+    boxes = sized(torch.randn(B, Q, 4, device=dev, generator=gen) * 3)
+    benefit = -match_cost_matrix(logits, boxes, tb, tl).transpose(1, 2).contiguous()
+    out.append(("nuscenes-2d-jv", benefit, tl >= 0, _eps_of(benefit, tl >= 0), 0))
+    B, Q = 32, 100
+    tb, tl = targets(B, N, 7)
+    # an untrained head's raw outputs (small, about half the sizes negative)
+    # against real targets
+    logits = 0.1 * torch.randn(B, Q, C, device=dev, generator=gen)
+    boxes = 0.5 * torch.randn(B, Q, 7, device=dev, generator=gen)
+    benefit = -match_cost_matrix(logits, boxes, tb, tl).transpose(1, 2).contiguous()
+    out.append(("nuscenes-untrained", benefit, tl >= 0, _eps_of(benefit, tl >= 0), 128))
+    # negative sizes on both sides (tools/synth.py::nuscenes_batch's boxes,
+    # which profile_train and the step checks feed): where both footprints
+    # are inverted the hull clamps to 1e-9 and the costs reach ~1e10
+    tb_neg = torch.randn(B, N, 7, device=dev, generator=gen) * 3
+    boxes = (torch.randn(1, 1, 7, device=dev, generator=gen)
+             + 3 * torch.randn(B, Q, 7, device=dev, generator=gen))
+    benefit = -match_cost_matrix(logits, boxes, tb_neg, tl).transpose(1, 2).contiguous()
+    out.append(("nuscenes-negative-sizes", benefit, tl >= 0, _eps_of(benefit, tl >= 0), 128))
+    return out
+
+
+def scipy_gap_limit(optimum: float) -> float:
+    """How far an element's assignment may miss scipy's float64 optimum in
+    total cost: 1e-4 while the optimum's magnitude stays under 1e6, else
+    1e-7 of it (the kernel and its plain version add float32 costs, whose
+    rounding grows with their size: ~1e3 at costs ~1e10)."""
+    return 1e-4 if abs(optimum) < 1e6 else 1e-7 * abs(optimum)
 
 
 def has_escalate(src: Path) -> bool:

@@ -1,17 +1,22 @@
 """Training CLI of the port, `automoe-train-torch` (port of
 automoe_tpu/train/cli.py):
 
-  bdd --task detection             ← automoe-train bdd --task detection
-  finetune-carla --task detection  ← automoe-train finetune-carla --task detection
-  policy                           ← automoe-train policy (--epochs 0: shape dry-run)
-  gating                           ← automoe-train gating (expert ckpt graft + freeze)
+  bdd --task T             ← automoe-train bdd --task T (detection|segmentation|drivable)
+  finetune-carla --task T  ← automoe-train finetune-carla --task T
+  nuscenes                 ← automoe-train nuscenes (camera, + LiDAR with --use-lidar)
+  nuscenes-2d              ← automoe-train nuscenes-2d (CARLA image-only 2D fine-tune)
+  policy                   ← automoe-train policy (--epochs 0: shape dry-run)
+  gating                   ← automoe-train gating (expert ckpt graft + freeze)
 
 Flags and per-subcommand defaults are the JAX CLI's, checkpoint and resume
 flags included (`--ckpt-root`, `--save-freq`, `--resume`, `--resume-from`,
 `--save-every-steps`, `--keep-epochs`, `--async-ckpt`, `--init-from`).
-Every other flag of that CLI, every other task and subcommand, exits with
-"not ported yet"; none is silently ignored. `--device` (default cuda;
-raises without a GPU unless it is `cpu`) is the port's own.
+Every other flag of that CLI, and its `preset` subcommand, exits with
+"not ported yet"; none is silently ignored. As in the JAX CLI,
+segmentation and drivable take no box cap and run no matcher, and
+nuscenes-2d always matches exactly (matcher 'hungarian'), so
+`--box-cap` / `--matcher` have no effect there. `--device` (default
+cuda; raises without a GPU unless it is `cpu`) is the port's own.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ from automoe_tpu_torch.train import workloads as W
 from automoe_tpu_torch.train.loop import TrainConfig, Trainer
 
 #: the JAX CLI's subcommands and flags this port does not have yet
-_NOT_PORTED_COMMANDS = ("nuscenes", "nuscenes-2d", "preset")
+_NOT_PORTED_COMMANDS = ("preset",)
 _NOT_PORTED_FLAGS = (
     "--packed-root", "--bf16", "--no-mesh", "--model-axis", "--spatial", "--tp-min-dim",
     "--remat", "--augment", "--qat", "--multihost", "--coordinator", "--num-processes",
@@ -86,8 +91,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--image-size", type=int, default=256)
     p.add_argument("--box-cap", type=int, default=48)
     p.add_argument("--matcher", default=None,
-                   help="set-matching solver: auction | auction_kernel | hungarian; the "
-                        "auction matchers take an iteration-cap suffix ('auction_kernel:256'); "
+                   help="set-matching solver: auction | auction_kernel | hungarian (exact: "
+                        "K2 alone on CUDA, scipy on the CPU); the auction matchers take an iteration-cap suffix ('auction_kernel:256'); "
                         "auction_pallas is accepted as auction_kernel (default: auction_kernel "
                         "on CUDA, auction elsewhere)")
     p.add_argument("--schedule", default=None,
@@ -149,25 +154,62 @@ def _graft_init_from(trainer: Trainer, args) -> Trainer:
     return trainer
 
 
-def _run_detection(args, factory):
-    if args.task != "detection":
-        raise SystemExit(f"--task {args.task} is not ported yet")
+def _fit(wl, train, val, args, pipeline: str = ""):
+    trainer = Trainer(wl, train, val, _train_cfg(args, pipeline))
+    return _graft_init_from(trainer, args).fit(_args_dump(args))
+
+
+def _run_expert(args, factories):
+    """bdd / finetune-carla: the task's factory; segmentation and drivable
+    take no box cap and run no matcher."""
     wl = W.bdd_expert_workload(args.task, bbox_loss_weight=args.bbox_loss_weight,
                                matcher=args.matcher)
-    train, val = _sized_loaders(factory, args, box_cap=args.box_cap)
-    return _graft_init_from(Trainer(wl, train, val, _train_cfg(args)), args).fit(_args_dump(args))
+    kw = {"box_cap": args.box_cap} if args.task == "detection" else {}
+    return _fit(wl, *_sized_loaders(factories[args.task], args, **kw), args)
 
 
 def cmd_bdd(args):
-    from automoe_tpu_torch.data import get_bdd_detection_loader
+    from automoe_tpu_torch.data import (
+        get_bdd_detection_loader,
+        get_bdd_drivable_loader,
+        get_bdd_segmentation_loader,
+    )
 
-    return _run_detection(args, get_bdd_detection_loader)
+    return _run_expert(args, {"detection": get_bdd_detection_loader,
+                              "segmentation": get_bdd_segmentation_loader,
+                              "drivable": get_bdd_drivable_loader})
 
 
 def cmd_finetune_carla(args):
+    from automoe_tpu_torch.data import (
+        get_carla_detection_loader,
+        get_carla_drivable_loader,
+        get_carla_segmentation_loader,
+    )
+
+    return _run_expert(args, {"detection": get_carla_detection_loader,
+                              "segmentation": get_carla_segmentation_loader,
+                              "drivable": get_carla_drivable_loader})
+
+
+def cmd_nuscenes(args):
+    from automoe_tpu_torch.data import get_nuscenes_loader
+
+    wl = W.nuscenes_workload(num_queries=args.num_queries, bbox_dim=7,
+                             use_lidar=args.use_lidar, use_tnet=args.use_tnet,
+                             fusion=args.fusion, bbox_loss_weight=args.bbox_loss_weight,
+                             matcher=args.matcher)
+    return _fit(wl, *_sized_loaders(get_nuscenes_loader, args, lidar_cap=args.lidar_cap,
+                                    box_cap=args.box_cap), args)
+
+
+def cmd_nuscenes_2d(args):
     from automoe_tpu_torch.data import get_carla_detection_loader
 
-    return _run_detection(args, get_carla_detection_loader)
+    wl = W.carla_nuscenes_2d_workload(num_queries=args.num_queries,
+                                      bbox_loss_weight=args.bbox_loss_weight)
+    return _fit(wl, *_sized_loaders(get_carla_detection_loader, args,
+                                    box_cap=args.box_cap), args)
 
 
 def cmd_policy(args):
@@ -188,8 +230,7 @@ def cmd_policy(args):
         print({k: tuple(v.shape) for k, v in out.items()}, flush=True)
         return {"dry_run": True}
     train, val = _sized_loaders(get_carla_sequence_loader, args, horizon=args.horizon)
-    trainer = Trainer(wl, train, val, _train_cfg(args, "policy"))
-    return _graft_init_from(trainer, args).fit(_args_dump(args))
+    return _fit(wl, train, val, args, "policy")
 
 
 def cmd_gating(args):
@@ -233,6 +274,24 @@ def main(argv=None):
     pf.add_argument("--bbox-loss-weight", type=float, default=1.0)
     _add_common(pf)
     pf.set_defaults(fn=cmd_finetune_carla, epochs=20, batch_size=16, learning_rate=2e-4,
+                    weight_decay=1e-5)
+
+    pn = sub.add_parser("nuscenes")
+    pn.add_argument("--num-queries", type=int, default=100)
+    pn.add_argument("--use-lidar", action="store_true")
+    pn.add_argument("--use-tnet", action="store_true")
+    pn.add_argument("--fusion", choices=["concat", "sum"], default="concat")
+    pn.add_argument("--lidar-cap", type=int, default=8192)
+    pn.add_argument("--bbox-loss-weight", type=float, default=5.0)
+    _add_common(pn)
+    pn.set_defaults(fn=cmd_nuscenes, epochs=50, batch_size=32, learning_rate=1e-4,
+                    weight_decay=1e-5)
+
+    p2 = sub.add_parser("nuscenes-2d")
+    p2.add_argument("--num-queries", type=int, default=196)
+    p2.add_argument("--bbox-loss-weight", type=float, default=1.0)
+    _add_common(p2)
+    p2.set_defaults(fn=cmd_nuscenes_2d, epochs=10, batch_size=16, learning_rate=2e-4,
                     weight_decay=1e-5)
 
     pp = sub.add_parser("policy")

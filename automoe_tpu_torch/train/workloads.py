@@ -1,8 +1,10 @@
 """Workload definitions: model + loss closure per training pipeline (port
-of automoe_tpu/train/workloads.py). Ported so far: the BDD / CARLA
-detection expert (`bdd_expert_workload("detection")`), the standalone
-trajectory policy (`policy_workload`, 4-conv backbone only) and the
-gating network over the full AutoMoE (`gating_workload`)."""
+of automoe_tpu/train/workloads.py): the BDD / CARLA experts
+(`bdd_expert_workload`: detection, segmentation, drivable), the nuScenes
+expert (`nuscenes_workload`, camera + LiDAR), its CARLA image-only 2D
+fine-tune (`carla_nuscenes_2d_workload`), the standalone trajectory
+policy (`policy_workload`, 4-conv backbone only) and the gating network
+over the full AutoMoE (`gating_workload`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,11 +14,25 @@ import torch
 from torch import nn
 
 from automoe_tpu_torch.configs import AutoMoEConfig, load_model_config
-from automoe_tpu_torch.losses.detection import detection_set_loss
+from automoe_tpu_torch.losses.detection import (
+    get_matcher,
+    detection_set_loss,
+    scatter_matched_targets,
+)
+from automoe_tpu_torch.losses.nuscenes import nuscenes_set_loss
+from automoe_tpu_torch.losses.segmentation import segmentation_loss
 from automoe_tpu_torch.losses.trajectory import gating_losses, policy_losses
 from automoe_tpu_torch.models.automoe import AutoMoE, expert_param_mask, init_parameters
-from automoe_tpu_torch.models.experts import BDDDetectionExpert
+from automoe_tpu_torch.models.experts import (
+    BDDDetectionExpert,
+    BDDDrivableExpert,
+    BDDSegmentationExpert,
+    NuScenesExpert,
+    NuScenesImage2DHead,
+)
 from automoe_tpu_torch.models.policy import TrajectoryPolicy
+from automoe_tpu_torch.ops.boxes import box_convert
+from automoe_tpu_torch.ops.masked import masked_cross_entropy, masked_smooth_l1
 
 # loss_fn(model, batch, train) -> (loss, metrics): batch holds tensors on
 # the model's device, images NHWC as the loaders give them
@@ -60,13 +76,16 @@ def bdd_expert_workload(task: str, *, num_classes: Optional[int] = None,
                         cost_bbox: float = 5.0, cost_giou: float = 2.0,
                         matcher: Optional[str] = None) -> Workload:
     """BDD100K expert training and its CARLA fine-tune (the same workload
-    over another data source). matcher None: `default_matcher` of the
-    device the batch lies on. Validation adds the reference's per-batch
-    avg_iou / recall_0.5 from the loss's own matching. Batches hold
-    NHWC images; the image size and box cap are the data's."""
+    over another data source). Detection: matcher None is
+    `default_matcher` of the device the batch lies on, and validation adds
+    the reference's per-batch avg_iou / recall_0.5 from the loss's own
+    matching. Segmentation (19 classes) and drivable (3): CE with ignore
+    label 255, and validation adds pixel_acc / mean_iou. Batches hold NHWC
+    images; the image size and box cap are the data's."""
+    C = {"detection": 10, "segmentation": 19, "drivable": 3}[task] \
+        if num_classes is None else num_classes
     if task != "detection":
-        raise NotImplementedError(f"the {task} task is not ported yet")
-    C = 10 if num_classes is None else num_classes
+        return _seg_like_workload(task, C)
 
     def loss_fn(model, batch, train):
         image = batch["image"]
@@ -91,6 +110,83 @@ def bdd_expert_workload(task: str, *, num_classes: Optional[int] = None,
 
     return Workload(name=f"bdd_{task}", build_model=lambda: BDDDetectionExpert(num_classes=C),
                     loss_fn=loss_fn)
+
+
+def _seg_like_workload(task: str, C: int) -> Workload:
+    def loss_fn(model, batch, train):
+        logits = model(batch["image"].permute(0, 3, 1, 2))  # [B,C,H,W]
+        res = segmentation_loss(logits, batch["mask"])
+        metrics = {}
+        if not train:
+            from automoe_tpu_torch.evals.segmentation import seg_metrics
+
+            metrics = seg_metrics(logits, batch["mask"], num_classes=C)
+        return res["loss"], metrics
+
+    model = BDDSegmentationExpert if task == "segmentation" else BDDDrivableExpert
+    return Workload(name=f"bdd_{task}", build_model=lambda: model(num_classes=C),
+                    loss_fn=loss_fn)
+
+
+# ---------------------------------------------------------------------------
+# nuScenes expert and its CARLA 2D fine-tune
+# ---------------------------------------------------------------------------
+
+def nuscenes_workload(*, num_queries: int = 100, bbox_dim: int = 7, use_lidar: bool = True,
+                      use_tnet: bool = False, fusion: str = "concat",
+                      bbox_loss_weight: float = 5.0,
+                      matcher: Optional[str] = None) -> Workload:
+    """nuScenes expert training: camera (+ LiDAR points through the
+    PointNet), the set loss of `losses/nuscenes.py` with `default_matcher`
+    of the batch's device unless `matcher` names one."""
+
+    def loss_fn(model, batch, train):
+        image = batch["image"]
+        out = model(image.permute(0, 3, 1, 2), batch.get("lidar"))
+        res = nuscenes_set_loss(out["class_logits"], out["bbox_preds"], batch["boxes"],
+                                batch["labels"], bbox_loss_weight=bbox_loss_weight,
+                                matcher=matcher or default_matcher(image.device))
+        return res["loss"], {"class_loss": res["class_loss"], "bbox_loss": res["bbox_loss"]}
+
+    return Workload(
+        name="nuscenes",
+        build_model=lambda: NuScenesExpert(num_queries=num_queries, fusion=fusion,
+                                           use_lidar=use_lidar, use_tnet=use_tnet,
+                                           bbox_dim=bbox_dim),
+        loss_fn=loss_fn)
+
+
+def carla_nuscenes_2d_workload(*, num_queries: int = 196, num_classes: int = 10,
+                               bbox_loss_weight: float = 1.0,
+                               matcher: Optional[str] = None) -> Workload:
+    """The nuScenes → CARLA image-only 2D fine-tune (the reference's
+    train_carla_nuscenes_expert_2d_ddp.py): xyxy targets as cxcywh, an
+    exact match ('hungarian': K2 alone on the card, scipy on the CPU,
+    unless `matcher` names another), CE over matched queries only (ignore
+    index C) and SmoothL1
+    over matched queries, weight 1.0."""
+
+    def loss_fn(model, batch, train):
+        image = batch["image"]
+        out = model(image.permute(0, 3, 1, 2))
+        logits, boxes = out["pred_logits"], out["pred_boxes"]
+        B, Q, C = logits.shape
+        tgt = box_convert(batch["bboxes"].float(), "xyxy", "cxcywh")
+        qidx, valid = get_matcher(matcher or "hungarian")(
+            logits, boxes, tgt, batch["labels"])
+        tc, tb = scatter_matched_targets(qidx, valid, tgt, batch["labels"], Q, C)
+        cls_loss = masked_cross_entropy(logits.reshape(B * Q, C), tc.reshape(B * Q),
+                                        ignore_index=C)
+        box_loss = masked_smooth_l1(boxes.reshape(B * Q, 4), tb.reshape(B * Q, 4),
+                                    tc.reshape(B * Q) != C)
+        return cls_loss + bbox_loss_weight * box_loss, {"class_loss": cls_loss,
+                                                        "bbox_loss": box_loss}
+
+    return Workload(
+        name="carla_nuscenes_2d",
+        build_model=lambda: NuScenesImage2DHead(num_queries=num_queries,
+                                                num_classes=num_classes),
+        loss_fn=loss_fn)
 
 
 # ---------------------------------------------------------------------------

@@ -372,3 +372,137 @@ def test_gating_step_cuda_matches_cpu(gen):
         if v.is_floating_point():
             np.testing.assert_allclose(runs["cuda"][1][k].numpy(), v.numpy(), rtol=1e-3,
                                        atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("regime", ["nuscenes-diverse", "nuscenes-degenerate",
+                                    "nuscenes-2d-jv", "nuscenes-untrained",
+                                    "nuscenes-negative-sizes"])
+def test_auction_kernel_at_nuscenes_shapes(gen, regime):
+    """K1+K2 at the nuScenes trainers' shapes (B=32, N=48, Q=100 on 7-dim
+    boxes: the 4-columns-per-lane instantiation; costs up to ~1e10 with
+    negative sizes) and K2 alone at the 2D fine-tune's (B=16, N=48, Q=196,
+    max_iters=0: 8 columns per lane): identical to the plain version, and
+    optimal in cost within float32's rounding of it (scipy_gap_limit)."""
+    from scipy.optimize import linear_sum_assignment
+
+    from automoe_tpu_torch.ops import auction_kernel as ak
+    from automoe_tpu_torch.tools.bench_auction import nuscenes_regimes, scipy_gap_limit
+
+    _, benefit, valid, eps, max_iters = {r[0]: r for r in nuscenes_regimes(gen)}[regime]
+    out = ak.auction_solve(benefit, valid, eps, max_iters=max_iters)
+    torch.cuda.synchronize()
+    masked = torch.where(valid[..., None], benefit, torch.zeros_like(benefit))
+    assert torch.equal(out, ak.auction_solve_plain(masked, valid, eps, max_iters=max_iters))
+    cost, o, v = (-benefit).double().cpu().numpy(), out.cpu().numpy(), valid.cpu().numpy()
+    for b in range(cost.shape[0]):
+        sub = cost[b][v[b]]
+        ri, ci = linear_sum_assignment(sub)
+        opt = sub[ri, ci].sum()
+        assert abs(sub[np.arange(len(sub)), o[b][v[b]]].sum() - opt) <= scipy_gap_limit(opt)
+
+
+def test_nuscenes_step_cuda_matches_cpu(gen):
+    """Two SGD steps of the LiDAR nuScenes workload (TNets, concat; K1 on
+    the card, its plain version on the CPU), dropout off, TF32 off, one
+    seed's weights, batches whose matches have no near-tie: losses within
+    rtol 1e-4, parameters and BatchNorm statistics within rtol 1e-3 / atol
+    1e-5."""
+    from automoe_tpu_torch.ops import auction_kernel as ak
+    from automoe_tpu_torch.tools.synth import nuscenes_batch
+    from automoe_tpu_torch.train.state import make_optimizer
+    from automoe_tpu_torch.train.step import make_train_step
+    from automoe_tpu_torch.train.workloads import nuscenes_workload
+
+    rng = np.random.default_rng(5)
+    batches = [nuscenes_batch(rng, 8, size=64, points=256, nbox=4) for _ in range(2)]
+    wl = nuscenes_workload(num_queries=16, use_lidar=True, use_tnet=True, fusion="concat",
+                           matcher="auction_kernel")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = wl.init_model(0, torch.device(dev))
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        opt = make_optimizer(model.named_parameters(), learning_rate=1e-3, weight_decay=0.0,
+                             total_steps=2, optimizer="sgd")
+        step = make_train_step(wl.loss_fn)
+        n = ak.LAUNCHES["auction_solve"]
+        losses = [float(step(model, opt, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+                        ["loss"]) for b in batches]
+        runs[dev] = (losses, model.state_dict(), ak.LAUNCHES["auction_solve"] - n)
+    assert runs["cuda"][2] == 2 and runs["cpu"][2] == 0
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    for k, v in runs["cpu"][1].items():
+        if v.is_floating_point():
+            np.testing.assert_allclose(runs["cuda"][1][k].cpu().numpy(), v.numpy(), rtol=1e-3,
+                                       atol=1e-5, err_msg=k)
+
+
+class _Replay(torch.nn.Module):
+    """A stand-in expert on the CPU that returns recorded outputs in turn."""
+
+    def __init__(self, outs):
+        super().__init__()
+        self.outs = iter(outs)
+        self.anchor = torch.nn.Parameter(torch.zeros(()))
+
+    def forward(self, image, lidar):
+        return next(self.outs)
+
+
+def test_evaluate_nuscenes_on_cuda_matches_cpu(gen):
+    """evaluate_nuscenes of a LiDAR expert on the card matches exactly on
+    the card (K2 alone, one launch per batch, no host solver) and gives the
+    val loss that the CPU's scipy match gives on the same expert outputs:
+    rtol 1e-5. Batch seed 15: each element's best assignment beats its
+    second best by >= 1e-2 in cost (~300 float32 ulps), so the two
+    devices' roundings of the costs cannot flip a match."""
+    from automoe_tpu_torch.evals.nuscenes import evaluate_nuscenes
+    from automoe_tpu_torch.ops import auction_kernel as ak
+    from automoe_tpu_torch.tools.synth import nuscenes_batch
+    from automoe_tpu_torch.train.workloads import nuscenes_workload
+
+    rng = np.random.default_rng(15)
+    batches = []
+    for _ in range(3):
+        b = nuscenes_batch(rng, 4, size=64, points=256, nbox=4)
+        b["boxes"][..., 3:6] = np.abs(b["boxes"][..., 3:6]) + 0.5  # real boxes' sizes
+        batches.append(b)
+    model = nuscenes_workload(num_queries=16, use_lidar=True, use_tnet=True,
+                              fusion="concat").init_model(0, torch.device("cuda"))
+    outs = []
+    model.register_forward_hook(
+        lambda m, i, o: outs.append({k: v.detach().cpu() for k, v in o.items()}))
+    n = ak.LAUNCHES["auction_solve"]
+    got = evaluate_nuscenes(model, batches)
+    assert ak.LAUNCHES["auction_solve"] - n == len(batches)
+    want = evaluate_nuscenes(_Replay(outs), batches)
+    assert ak.LAUNCHES["auction_solve"] - n == len(batches)  # the CPU ran scipy
+    np.testing.assert_allclose(got["val_loss"], want["val_loss"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("cmd", [["bdd", "--task", "segmentation"],
+                                 ["finetune-carla", "--task", "drivable"], ["nuscenes-2d"]])
+def test_seg_and_2d_train_cli_on_cuda(gen, tmp_path, cmd):
+    """Segmentation and drivable training launch no kernel; the nuScenes
+    2D fine-tune launches K2 alone once per train and val step."""
+    from automoe_tpu_torch.ops import auction_kernel as ak
+    from automoe_tpu_torch.tools import synth
+    from automoe_tpu_torch.train.cli import main
+
+    n_split = {"train": 4, "val": 3}
+    if cmd[0] == "bdd":
+        root = synth.synth_bdd_segmentation(tmp_path / "d", n_per_split=n_split, size=64)
+    elif cmd[0] == "finetune-carla":
+        root = synth.synth_carla_segmentation(tmp_path / "d", n_per_split=n_split, size=64)
+    else:
+        root = synth.synth_carla_detection(tmp_path / "d", n_per_split=n_split, size=64,
+                                           max_boxes=3)
+        cmd = cmd + ["--num-queries", "16", "--box-cap", "4"]
+    n = ak.LAUNCHES["auction_solve"]
+    res = main(cmd + ["--data-root", str(root), "--image-size", "64", "--batch-size", "2",
+                      "--epochs", "1", "--num-workers", "1", "--runs-root",
+                      str(tmp_path / "runs"), "--ckpt-root", str(tmp_path / "ckpt")])
+    # 2 train steps + 2 val steps (the second a padded tail)
+    assert ak.LAUNCHES["auction_solve"] - n == (4 if cmd[0] == "nuscenes-2d" else 0)
+    assert np.isfinite(res["best_val_loss"]) and res["device_timed"] == 1.0

@@ -331,12 +331,14 @@ def test_detection_eval_sum_and_metrics_match_jax(jax_ref, seed):
 
 
 def test_matcher_names():
-    from automoe_tpu_torch.losses.detection import _get_matcher
+    from automoe_tpu_torch.losses.detection import get_matcher
     from automoe_tpu_torch.ops.auction_kernel import auction_match_kernel
+    from automoe_tpu_torch.ops.matching import exact_match
 
-    assert _get_matcher("auction_pallas") is auction_match_kernel
-    assert _get_matcher("auction_kernel:7").keywords == {"max_iters": 7}
+    assert get_matcher("auction_pallas") is auction_match_kernel
+    assert get_matcher("auction_kernel:7").keywords == {"max_iters": 7}
+    assert get_matcher("hungarian") is exact_match
     with pytest.raises(ValueError):
-        _get_matcher("hungarian:5")
+        get_matcher("hungarian:5")
     with pytest.raises(ValueError):
-        _get_matcher("sinkhorn")
+        get_matcher("sinkhorn")

@@ -264,8 +264,8 @@ def test_train_cli_finetune_carla_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["nuscenes"],
-    ["bdd", "--task", "segmentation", "--device", "cpu"],
+    ["nuscenes", "--remat"],
+    ["bdd", "--task", "segmentation", "--packed-root", "packed"],
     ["bdd", "--task", "detection", "--bf16"],
     ["finetune-carla", "--task", "detection", "--ema-decay", "0.999"],
     ["preset", "carla_finetune_v5e"],
