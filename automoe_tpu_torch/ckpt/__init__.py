@@ -8,5 +8,6 @@ from automoe_tpu_torch.ckpt.checkpoint import (  # noqa: F401
     CheckpointManager,
     load_checkpoint,
     load_variables,
+    state_dict_from_checkpoint,
 )
 from automoe_tpu_torch.ckpt.compose import load_expert_checkpoints  # noqa: F401

@@ -10,9 +10,20 @@ completes. Each file holds one dict:
   model_state_dict  the model's state dict under the reference names, so
                     `ckpt.load_torch_state_dict` and
                     `InferenceEngine.from_torch_checkpoint` read it as is;
+  ema_state_dict    with an EMA (--ema-decay), the average of every
+                    parameter under the same names (the JAX package's
+                    `ema_params`; BatchNorm statistics are not averaged);
   optimizer         `train.state.Optimizer.state_dict()` (step count and
                     AdamW moments of the trainable parameters);
   step, epoch, best_val_loss, and batch_index in a `step` checkpoint.
+
+Restoring follows the JAX package where the checkpoint and the run
+disagree on the EMA: a checkpoint's EMA that the run does not keep is
+ignored; a run that keeps one from a checkpoint without it starts it at
+the restored parameters. `load_variables(..., prefer_ema=True)` and
+`state_dict_from_checkpoint(..., prefer_ema=True)` read the EMA in the
+parameters' place and raise KeyError when the file has none (the JAX
+package documents that, but returns the template's values).
 
 A file is written to a temporary name in its directory, then renamed over
 the target (`os.replace`), so a reader sees the old file or the new one,
@@ -74,10 +85,24 @@ def load_state_into(module: nn.Module, state_dict: Mapping[str, torch.Tensor],
     module.load_state_dict({k: state_dict[k] for k in module.state_dict()}, strict=True)
 
 
-def load_variables(path, module: nn.Module) -> None:
+def state_dict_from_checkpoint(path, prefer_ema: bool = False) -> Dict[str, torch.Tensor]:
+    """The model state dict of a checkpoint file; prefer_ema=True puts the
+    EMA of the parameters in their place (KeyError without one)."""
+    payload = load_checkpoint(path)
+    sd = dict(payload["model_state_dict"])
+    if prefer_ema:
+        if "ema_state_dict" not in payload:
+            raise KeyError(f"{path}: no EMA weights in this checkpoint (written by a run "
+                           "without --ema-decay)")
+        sd.update(payload["ema_state_dict"])
+    return sd
+
+
+def load_variables(path, module: nn.Module, *, prefer_ema: bool = False) -> None:
     """Load only the model weights and BatchNorm statistics of a checkpoint
-    into `module` (evaluation, --init-from), with load_state_into's guard."""
-    load_state_into(module, load_checkpoint(path)["model_state_dict"], str(path))
+    into `module` (evaluation, --init-from), with load_state_into's guard;
+    prefer_ema=True loads the EMA weights."""
+    load_state_into(module, state_dict_from_checkpoint(path, prefer_ema), str(path))
 
 
 class CheckpointManager:
@@ -114,7 +139,7 @@ class CheckpointManager:
 
     def _payload(self, model: nn.Module, optimizer, epoch: int) -> Dict[str, Any]:
         opt = optimizer.state_dict()
-        return {
+        payload = {
             "model_state_dict": _host_copy(model.state_dict()),
             "optimizer": {"count": opt["count"], "state": {
                 n: tuple(t.detach().to("cpu", copy=True) for t in mn)
@@ -123,6 +148,9 @@ class CheckpointManager:
             "epoch": int(epoch),
             "best_val_loss": float(self.best_val),
         }
+        if optimizer.ema is not None:
+            payload["ema_state_dict"] = _host_copy(optimizer.ema.state_dict())
+        return payload
 
     def _write(self, which: str, payload: Dict[str, Any], config: Optional[Dict]) -> None:
         path = self.path(which)
@@ -178,7 +206,9 @@ class CheckpointManager:
                 mode: str = "full") -> Tuple[int, int]:
         """Load checkpoint `which` (best | last | epoch_N | step) into the
         model ('model': weights and BatchNorm statistics) and, with
-        mode='full', the optimizer. Returns (epoch, batch_index), the
+        mode='full', the optimizer; in both modes the optimizer's EMA, if
+        it keeps one (from the file's, else at the restored parameters).
+        Returns (epoch, batch_index), the
         batch index being 0 except for a `step` checkpoint. A missing
         `step` falls back to `last` and returns (its epoch + 1, 0); with
         neither, nothing is loaded, last_restore_loaded is False and
@@ -199,6 +229,11 @@ class CheckpointManager:
         load_state_into(model, payload["model_state_dict"], str(path))
         if mode == "full":
             optimizer.load_state_dict(payload["optimizer"])
+        if optimizer.ema is not None:
+            if "ema_state_dict" in payload:
+                optimizer.ema.load_state_dict(payload["ema_state_dict"])
+            else:
+                optimizer.ema.reset()
         self.best_val = float(payload["best_val_loss"])
         self.last_restore_loaded = True
         return int(payload["epoch"]), int(payload.get("batch_index", 0))

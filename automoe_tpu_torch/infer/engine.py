@@ -94,13 +94,19 @@ class InferenceEngine:
         return ((x.float() - self._mean) / self._std).to(self.dtype)
 
     @classmethod
-    def from_torch_checkpoint(cls, model_config, ckpt_path: str, **kw):
+    def from_torch_checkpoint(cls, model_config, ckpt_path: str, *,
+                              prefer_ema: bool = False, **kw):
         """Serve an AutoMoE torch checkpoint: a reference `.pth` (DDP
         prefixes stripped) or a gating checkpoint written by
-        `automoe-train-torch` (its `model_state_dict`)."""
-        from automoe_tpu_torch.ckpt import load_torch_state_dict
+        `automoe-train-torch` (its `model_state_dict`). prefer_ema=True
+        serves the EMA weights such a checkpoint holds from a run with
+        --ema-decay (KeyError if it has none); int8 calibration then runs
+        on them."""
+        from automoe_tpu_torch.ckpt import load_torch_state_dict, state_dict_from_checkpoint
 
-        return cls(model_config, load_torch_state_dict(ckpt_path), **kw)
+        sd = (state_dict_from_checkpoint(ckpt_path, prefer_ema=True) if prefer_ema
+              else load_torch_state_dict(ckpt_path))
+        return cls(model_config, sd, **kw)
 
     @torch.inference_mode()
     def _step(self, frames: torch.Tensor, speeds: torch.Tensor) -> Dict[str, torch.Tensor]:

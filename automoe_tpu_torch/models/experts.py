@@ -11,6 +11,8 @@ with kernel 1 over [B,C,P] and its norms `nn.BatchNorm1d` (torch's
 BatchNorm is the JAX package's TorchBatchNorm: momentum 0.1 in torch's
 terms, eps 1e-5, unbiased running variance). `NuScenesImage2DHead` is the
 image-only 2D fine-tune head. Module names are the reference's.
+`remat` and `qat` (training options of the ResNet-18 trunk,
+models/resnet.py) leave the state dict unchanged.
 """
 from __future__ import annotations
 
@@ -46,10 +48,11 @@ def bilinear_resize(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
 class BDDDetectionExpert(nn.Module):
     """Dense per-cell detector: ResNet18 trunk → {class_logits, bbox_deltas}."""
 
-    def __init__(self, num_classes: int = 10, *, device=None, dtype=None):
+    def __init__(self, num_classes: int = 10, *, remat: bool = False, qat: bool = False,
+                 device=None, dtype=None):
         super().__init__()
         self.num_classes = num_classes
-        self.backbone = ResNet18Backbone(device=device, dtype=dtype)
+        self.backbone = ResNet18Backbone(remat=remat, qat=qat, device=device, dtype=dtype)
         self.head = _ConvHead(num_classes + 4, device=device, dtype=dtype)
 
     def heads(self, feats: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -69,12 +72,12 @@ class BDDSegmentationExpert(nn.Module):
     upsample=False returns the low-res logits (serving fast path: the
     gating extractor pools them with exact mean-of-resize weights)."""
 
-    def __init__(self, num_classes: int = 19, *, upsample: bool = True,
-                 device=None, dtype=None):
+    def __init__(self, num_classes: int = 19, *, upsample: bool = True, remat: bool = False,
+                 qat: bool = False, device=None, dtype=None):
         super().__init__()
         self.num_classes = num_classes
         self.upsample = upsample
-        self.backbone = ResNet18Backbone(device=device, dtype=dtype)
+        self.backbone = ResNet18Backbone(remat=remat, qat=qat, device=device, dtype=dtype)
         self.decoder = _ConvHead(num_classes, device=device, dtype=dtype)
 
     def heads(self, feats: torch.Tensor) -> torch.Tensor:
@@ -90,10 +93,10 @@ class BDDSegmentationExpert(nn.Module):
 class BDDDrivableExpert(BDDSegmentationExpert):
     """Same architecture, 3 classes {bg, drivable, alternative}."""
 
-    def __init__(self, num_classes: int = 3, *, upsample: bool = True,
-                 device=None, dtype=None):
-        super().__init__(num_classes, upsample=upsample, device=device,
-                         dtype=dtype)
+    def __init__(self, num_classes: int = 3, *, upsample: bool = True, remat: bool = False,
+                 qat: bool = False, device=None, dtype=None):
+        super().__init__(num_classes, upsample=upsample, remat=remat, qat=qat,
+                         device=device, dtype=dtype)
 
 
 def _point_layers(m: nn.Module, in_channels: int, out_dim: int, fk) -> None:
@@ -168,10 +171,10 @@ class NuScenesImage2DHead(nn.Module):
     with dropout 0.1, class head and 4-dim (cxcywh) box head."""
 
     def __init__(self, num_queries: int = 196, num_classes: int = 10, *,
-                 device=None, dtype=None):
+                 remat: bool = False, qat: bool = False, device=None, dtype=None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
-        self.image_backbone = ResNet18Backbone(include_pool=True, **fk)
+        self.image_backbone = ResNet18Backbone(include_pool=True, remat=remat, qat=qat, **fk)
         self.image_projection = nn.Linear(512, 256, **fk)
         self.query_embed = nn.Embedding(num_queries, 256, **fk)
         self.mlp = nn.Sequential(
@@ -196,8 +199,8 @@ class NuScenesExpert(nn.Module):
 
     def __init__(self, num_queries: int = 100, fusion: str = "concat",
                  use_lidar: bool = False, use_tnet: bool = False,
-                 bbox_dim: int = 7, num_classes: int = 10, *,
-                 device=None, dtype=None):
+                 bbox_dim: int = 7, num_classes: int = 10, *, remat: bool = False,
+                 qat: bool = False, device=None, dtype=None):
         super().__init__()
         if fusion not in ("concat", "sum"):
             raise ValueError(f"unknown fusion {fusion!r}")
@@ -205,7 +208,7 @@ class NuScenesExpert(nn.Module):
         self.use_lidar = use_lidar
         self.fusion = fusion
         self.fusion_dim = 512 if (use_lidar and fusion == "concat") else 256
-        self.image_backbone = ResNet18Backbone(include_pool=True, **fk)
+        self.image_backbone = ResNet18Backbone(include_pool=True, remat=remat, qat=qat, **fk)
         self.image_projection = nn.Linear(512, 256, **fk)
         if use_lidar:
             self.lidar_backbone = PointNet(256, use_tnet, **fk)

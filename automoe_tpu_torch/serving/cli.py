@@ -4,6 +4,8 @@ port (serving/server.py; `serving.Client` is the reference client).
   automoe-serve-torch --checkpoint automoe.pth     # reference torch ckpt
   automoe-serve-torch --checkpoint checkpoints/gating/run/best.pt --quantize
                                                    # a checkpoint automoe-train-torch wrote
+  automoe-serve-torch --checkpoint checkpoints/gating/run/best.pt --ema
+                                                   # its EMA weights (--ema-decay runs)
   automoe-serve-torch --quantize                   # int8 trunks, random init
   automoe-serve-torch --device cpu                 # no GPU
 
@@ -35,7 +37,13 @@ def build_engine(args):
     if args.checkpoint:
         if not Path(args.checkpoint).is_file():
             raise SystemExit(f"--checkpoint {args.checkpoint}: no such file")
-        return InferenceEngine.from_torch_checkpoint(cfg, args.checkpoint, **kw)
+        if args.ema and args.checkpoint.endswith(".pth"):
+            raise SystemExit("--ema needs a checkpoint written by an automoe-train-torch "
+                             "run with --ema-decay (not a .pth)")
+        return InferenceEngine.from_torch_checkpoint(cfg, args.checkpoint,
+                                                     prefer_ema=args.ema, **kw)
+    if args.ema:
+        raise SystemExit("--ema needs --checkpoint")
     return InferenceEngine(cfg, **kw)
 
 
@@ -47,6 +55,9 @@ def main(argv: Optional[Sequence[str]] = None, block: bool = True):
                         "written by automoe-train-torch")
     p.add_argument("--quantize", action="store_true",
                    help="int8 PTQ expert trunks (serving/quant.py)")
+    p.add_argument("--ema", action="store_true",
+                   help="serve the EMA weights from a --ema-decay run's checkpoint "
+                        "(the deploy-side weights)")
     p.add_argument("--fp32", action="store_true")
     p.add_argument("--camera-hw", type=int, nargs=2, default=(600, 800))
     p.add_argument("--model-hw", type=int, nargs=2, default=(256, 256))

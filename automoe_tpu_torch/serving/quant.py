@@ -185,41 +185,47 @@ def _conv_i8(xq: torch.Tensor, p: Dict, stride: int, pad: int) -> torch.Tensor:
     return torch._int_mm(a.contiguous(), p["wmat"])[:m].reshape(B, oh, ow, -1)
 
 
+def _quant(v_f32: torch.Tensor, s) -> torch.Tensor:
+    return quantize_int8(v_f32, float(np.float32(1.0 / s)))
+
+
+def q8_block(trunk: Dict, scales: Dict[str, float], name: str, xq: torch.Tensor, si,
+             stride: int) -> torch.Tensor:
+    """One BasicBlock `name` ('layer{s}_{b}') of the int8 trunk on its int8
+    input (xq NHWC, scale si): the block's f32 output, before it is
+    requantized for the next block."""
+
+    def deq(y_i32, p):
+        return y_i32.float() * p["scale"] + p["b"]
+
+    p1, p2 = trunk[f"{name}/conv1"], trunk[f"{name}/conv2"]
+    hq = _quant(torch.relu(deq(_conv_i8(xq, p1, stride, 1), p1)),
+                _act_scale(scales[f"{name}/conv2"]))
+    a2 = deq(_conv_i8(hq, p2, 1, 1), p2)
+    if f"{name}/downsample_conv" in trunk:
+        pd = trunk[f"{name}/downsample_conv"]
+        r = deq(_conv_i8(xq, pd, stride, 0), pd)
+    else:
+        r = xq.float() * float(si)
+    return torch.relu(a2 + r)
+
+
 def resnet_quant_forward_q8(trunk: Dict, scales: Dict[str, float],
                             stem_in, dtype=torch.bfloat16) -> torch.Tensor:
     """int8-RESIDENT trunk from the int8 stem output `stem_in` =
     (xq [B,h,w,64] int8 NHWC, si): requantization is folded into each
     conv's dequant epilogue, and the identity residual is dequantized
     from the block's int8 input. Returns NHWC features in `dtype`."""
-
-    def sx(name: str) -> np.float32:
-        return _act_scale(scales[name])
-
-    def quant(v_f32, s):
-        return quantize_int8(v_f32, float(np.float32(1.0 / s)))
-
-    def deq(y_i32, p):
-        return y_i32.float() * p["scale"] + p["b"]
-
     xq, si = stem_in
     for stage, _, stride in _STAGES:
         for blk in (0, 1):
-            n = f"layer{stage}_{blk}"
-            s = stride if blk == 0 else 1
-            p1, p2 = trunk[f"{n}/conv1"], trunk[f"{n}/conv2"]
-            s2 = sx(f"{n}/conv2")
-            hq = quant(torch.relu(deq(_conv_i8(xq, p1, s, 1), p1)), s2)
-            a2 = deq(_conv_i8(hq, p2, 1, 1), p2)
-            if f"{n}/downsample_conv" in trunk:
-                pd = trunk[f"{n}/downsample_conv"]
-                r = deq(_conv_i8(xq, pd, s, 0), pd)
-            else:
-                r = xq.float() * float(si)
-            out = torch.relu(a2 + r)
+            out = q8_block(trunk, scales, f"layer{stage}_{blk}", xq, si,
+                           stride if blk == 0 else 1)
             if stage == 4 and blk == 1:  # last block → heads want dtype
                 return out.to(dtype)
-            si = sx(f"layer{stage}_1/conv1" if blk == 0 else f"layer{stage + 1}_0/conv1")
-            xq = quant(out, si)
+            si = _act_scale(scales[f"layer{stage}_1/conv1" if blk == 0
+                                   else f"layer{stage + 1}_0/conv1"])
+            xq = _quant(out, si)
     raise AssertionError("unreachable")
 
 

@@ -4,6 +4,7 @@
         [--workload detection|gating|nuscenes|segmentation|drivable]
         [--batch 32|8|16] [--size 256] [--box-cap 48] [--points 8192]
         [--matcher auction_kernel] [--steps 5] [--no-tf32]
+        [--bf16] [--remat] [--qat]
         [--data-root CACHE [--num-workers 4]]
 
 Runs a workload's train step with seeded random weights and AdamW at the
@@ -28,7 +29,10 @@ steps, and from torch.profiler over `--steps` steps the device busy time
 per step (sum of GPU activity), the idle share, launches per step, the
 auction kernel's device time per step, and the activities that take the
 most device time. Convolutions run as PyTorch runs them by default
-(cuDNN in TF32) unless --no-tf32 is given.
+(cuDNN in TF32) unless --no-tf32 is given. --bf16, --remat and --qat are
+the training CLI's step options (bf16 autocast; checkpointed ResNet-18
+blocks; int8 fake-quant), for the workloads that take them (gating: --bf16
+only).
 """
 from __future__ import annotations
 
@@ -63,6 +67,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--data-root", default=None,
                    help="segmentation|drivable: feed the steps from the CLI's loader")
     p.add_argument("--num-workers", type=int, default=4)
+    p.add_argument("--bf16", action="store_true", help="bf16 autocast forward")
+    p.add_argument("--remat", action="store_true", help="checkpoint each ResNet-18 block")
+    p.add_argument("--qat", action="store_true", help="int8 fake-quant of the trunk")
     args = p.parse_args(argv)
     if args.data_root and args.workload not in ("segmentation", "drivable"):
         p.error("--data-root feeds the segmentation and drivable workloads only")
@@ -85,13 +92,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     gating = args.workload == "gating"
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    opts = dict(dtype=dtype, remat=args.remat, qat=args.qat)
     args.batch = args.batch or {"gating": 8, "drivable": 16}.get(args.workload, 32)
     rng = np.random.default_rng(args.seed)
     if args.workload == "nuscenes":
         batch = nuscenes_batch(rng, args.batch, size=args.size, points=args.points,
                                nbox=args.box_cap)
         wl = nuscenes_workload(num_queries=100, use_lidar=True, use_tnet=True,
-                               fusion="concat", matcher=args.matcher)
+                               fusion="concat", matcher=args.matcher, **opts)
         lr, wd = 1e-4, 1e-5
     elif args.workload in ("segmentation", "drivable"):
         C = 19 if args.workload == "segmentation" else 3
@@ -99,7 +108,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                   for _ in range(args.batch)]
         batch = {"image": np.stack([im.transpose(1, 2, 0) for im, _ in scenes]),
                  "mask": np.stack([m for _, m in scenes]).astype(np.int32)}
-        wl = bdd_expert_workload(args.workload)
+        wl = bdd_expert_workload(args.workload, **opts)
         lr, wd = 1e-4, 1e-5
     else:
         images, boxes, labels = [], [], []
@@ -120,11 +129,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          throttle=rng.uniform(0, 1, (args.batch, H)),
                          brake=(rng.uniform(0, 1, (args.batch, H)) < 0.1) * 1.0,
                          waypoints=rng.normal(0, 5, (args.batch, H, 2)))
-            wl = gating_workload(cfg)
+            wl = gating_workload(cfg, dtype=dtype)
             lr, wd = 1e-4, 1e-4
         else:
             batch.update(bboxes=np.stack(boxes), labels=np.stack(labels))
-            wl = bdd_expert_workload("detection", bbox_loss_weight=1.0, matcher=args.matcher)
+            wl = bdd_expert_workload("detection", bbox_loss_weight=1.0, matcher=args.matcher,
+                                     **opts)
             lr, wd = 2e-4, 1e-5
     batch = {k: torch.from_numpy(v if v.dtype != np.float64 else v.astype(np.float32)).to(dev)
              for k, v in batch.items()}
@@ -172,6 +182,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                       "size": args.size, "box_cap": args.box_cap, "matcher": args.matcher,
                       "steps": args.steps,
                       "cudnn_tf32": torch.backends.cudnn.allow_tf32,
+                      "bf16": args.bf16, "remat": args.remat, "qat": args.qat,
                       "data_root": args.data_root,
                       "num_workers": args.num_workers if args.data_root else None,
                       "host_step_ms_median": float(np.median(wall)),

@@ -10,9 +10,14 @@ automoe_tpu/train/cli.py):
 
 Flags and per-subcommand defaults are the JAX CLI's, checkpoint and resume
 flags included (`--ckpt-root`, `--save-freq`, `--resume`, `--resume-from`,
-`--save-every-steps`, `--keep-epochs`, `--async-ckpt`, `--init-from`).
-Every other flag of that CLI, and its `preset` subcommand, exits with
-"not ported yet"; none is silently ignored. As in the JAX CLI,
+`--save-every-steps`, `--keep-epochs`, `--async-ckpt`, `--init-from`), and
+so are the step options (`--bf16`, `--ema-decay`, `--grad-accum`,
+`--steps-per-call`, `--max-inflight`, `--remat`, `--qat`, `--augment`,
+`--debug-nans`, `--profile-dir`). Where the JAX CLI gives an option no
+effect (--remat and --qat for policy and gating, --augment where the
+workload has none), the port says so. `--packed-root`, the mesh and
+multi-host flags, a few policy and gating flags and the `preset`
+subcommand exit with "not ported yet"; none is silently ignored. As in the JAX CLI,
 segmentation and drivable take no box cap and run no matcher, and
 nuscenes-2d always matches exactly (matcher 'hungarian'), so
 `--box-cap` / `--matcher` have no effect there. `--device` (default
@@ -23,6 +28,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+from typing import Dict
 
 from automoe_tpu_torch.train import workloads as W
 from automoe_tpu_torch.train.loop import TrainConfig, Trainer
@@ -30,10 +36,8 @@ from automoe_tpu_torch.train.loop import TrainConfig, Trainer
 #: the JAX CLI's subcommands and flags this port does not have yet
 _NOT_PORTED_COMMANDS = ("preset",)
 _NOT_PORTED_FLAGS = (
-    "--packed-root", "--bf16", "--no-mesh", "--model-axis", "--spatial", "--tp-min-dim",
-    "--remat", "--augment", "--qat", "--multihost", "--coordinator", "--num-processes",
-    "--process-id", "--debug-nans", "--max-inflight", "--profile-dir", "--steps-per-call",
-    "--grad-accum", "--ema-decay",
+    "--packed-root", "--no-mesh", "--model-axis", "--spatial", "--tp-min-dim",
+    "--multihost", "--coordinator", "--num-processes", "--process-id",
 )
 _NOT_PORTED_POLICY_FLAGS = ("--trunk-depth", "--trunk-width", "--pp-microbatches")
 _NOT_PORTED_GATING_FLAGS = ("--parallelism", "--cache-expert-features", "--device-resident",
@@ -100,6 +104,50 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="LR schedule cadence (default: the reference trainer's: cosine per "
                         "optimizer step for experts, constant for policy, cosine_per_epoch "
                         "for gating)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 compute (params stay fp32): the forward under bf16 autocast")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialisation: checkpoint each backbone block — the backward "
+                        "recomputes one block at a time instead of holding the whole "
+                        "stack's activations (~1 extra forward of FLOPs for the stack's "
+                        "activation memory); for batches/resolutions that don't fit "
+                        "otherwise")
+    p.add_argument("--augment", action="store_true",
+                   help="on-device augmentation in the train step (random resized crop + "
+                        "hflip + color jitter, box/mask-consistent label geometry, keyed "
+                        "by (seed, step) — ops/augment.py); expert pipelines only; OFF by "
+                        "default (the reference has none)")
+    p.add_argument("--qat", action="store_true",
+                   help="quantization-aware training: fake-quantize backbone conv weights "
+                        "(per-channel int8) and inputs (per-tensor int8) with the "
+                        "straight-through estimator, so the model trains against the grid "
+                        "the int8 serving path deploys (ops/fake_quant.py; stem stays "
+                        "float)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="torch.autograd.detect_anomaly over training, and raise at the "
+                        "first non-finite train loss (reads every loss; slow; debugging "
+                        "only)")
+    p.add_argument("--max-inflight", type=int, default=2,
+                   help="train steps allowed in flight before the host waits on the "
+                        "oldest (0 = sync every step)")
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace of the first trained epoch into "
+                        "this dir (Chrome trace JSON: Perfetto, chrome://tracing)")
+    p.add_argument("--steps-per-call", type=int, default=1,
+                   help="K>1 runs K optimizer steps per call (one stacked H2D + one "
+                        "loss read-back per K steps; K batches of device memory for "
+                        "inputs)")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="K>1 accumulates gradients over K loader batches and applies "
+                        "their average as ONE optimizer step (effective batch K x "
+                        "batch-size with one microbatch of activations live — composes "
+                        "with --remat for memory; BN normalizes per microbatch, torch "
+                        "grad-accum semantics)")
+    p.add_argument("--ema-decay", type=float, default=0.0,
+                   help="d>0 tracks an EMA of params (updated after each optimizer "
+                        "step), validates it per epoch (val_ema), uses it for the "
+                        "best-checkpoint decision, and saves it in checkpoints for "
+                        "automoe-serve-torch --ema. Typical: 0.999")
     p.add_argument("--device", default=None,
                    help="cuda (default; raises without a GPU) or cpu")
     _reject(p, _NOT_PORTED_FLAGS)
@@ -113,7 +161,22 @@ def _train_cfg(args, pipeline: str = "") -> TrainConfig:
         ckpt_root=args.ckpt_root, runs_root=args.runs_root, save_freq=args.save_freq,
         keep_epochs=args.keep_epochs, async_ckpt=args.async_ckpt, resume=args.resume,
         resume_from=args.resume_from, save_every_steps=args.save_every_steps,
-        device=args.device)
+        max_inflight=args.max_inflight, steps_per_call=args.steps_per_call,
+        profile_dir=args.profile_dir, grad_accum=args.grad_accum,
+        ema_decay=args.ema_decay, debug_nans=args.debug_nans, device=args.device)
+
+
+def _dtype(args):
+    import torch
+
+    return torch.bfloat16 if args.bf16 else torch.float32
+
+
+def _no_effect(args, pipeline: str, why: Dict[str, str]) -> None:
+    """Print the JAX CLI's note for each given option this pipeline ignores."""
+    for flag, reason in why.items():
+        if getattr(args, flag):
+            print(f"[cli] --{flag}: no effect for {pipeline} ({reason})", flush=True)
 
 
 def _args_dump(args) -> dict:
@@ -149,6 +212,7 @@ def _graft_init_from(trainer: Trainer, args) -> Trainer:
         from automoe_tpu_torch.ckpt import load_variables
 
         load_variables(args.init_from, trainer.model)
+        trainer.reset_ema()  # the average starts at the seeded weights
         print(f"[cli] warm-started weights and BatchNorm statistics from {args.init_from}",
               flush=True)
     return trainer
@@ -163,7 +227,8 @@ def _run_expert(args, factories):
     """bdd / finetune-carla: the task's factory; segmentation and drivable
     take no box cap and run no matcher."""
     wl = W.bdd_expert_workload(args.task, bbox_loss_weight=args.bbox_loss_weight,
-                               matcher=args.matcher)
+                               matcher=args.matcher, dtype=_dtype(args), remat=args.remat,
+                               qat=args.qat, augment=args.augment)
     kw = {"box_cap": args.box_cap} if args.task == "detection" else {}
     return _fit(wl, *_sized_loaders(factories[args.task], args, **kw), args)
 
@@ -195,10 +260,13 @@ def cmd_finetune_carla(args):
 def cmd_nuscenes(args):
     from automoe_tpu_torch.data import get_nuscenes_loader
 
+    _no_effect(args, "nuscenes", {"augment": "the JAX nuScenes workload has no "
+                                             "augmentation"})
     wl = W.nuscenes_workload(num_queries=args.num_queries, bbox_dim=7,
                              use_lidar=args.use_lidar, use_tnet=args.use_tnet,
                              fusion=args.fusion, bbox_loss_weight=args.bbox_loss_weight,
-                             matcher=args.matcher)
+                             matcher=args.matcher, dtype=_dtype(args), remat=args.remat,
+                             qat=args.qat)
     return _fit(wl, *_sized_loaders(get_nuscenes_loader, args, lidar_cap=args.lidar_cap,
                                     box_cap=args.box_cap), args)
 
@@ -207,7 +275,9 @@ def cmd_nuscenes_2d(args):
     from automoe_tpu_torch.data import get_carla_detection_loader
 
     wl = W.carla_nuscenes_2d_workload(num_queries=args.num_queries,
-                                      bbox_loss_weight=args.bbox_loss_weight)
+                                      bbox_loss_weight=args.bbox_loss_weight,
+                                      dtype=_dtype(args), remat=args.remat, qat=args.qat,
+                                      augment=args.augment)
     return _fit(wl, *_sized_loaders(get_carla_detection_loader, args,
                                     box_cap=args.box_cap), args)
 
@@ -218,7 +288,12 @@ def cmd_policy(args):
     from automoe_tpu_torch.data import get_carla_sequence_loader
     from automoe_tpu_torch.utils import resolve_device
 
-    wl = W.policy_workload(horizon=args.horizon, context_dim=args.context_dim)
+    _no_effect(args, "policy", {
+        "remat": "EasyBackbone is 4 convs; nothing worth checkpointing",
+        "qat": "int8 serving quantizes only the expert trunks; the policy head stays bf16",
+        "augment": "expert pipelines only"})
+    wl = W.policy_workload(horizon=args.horizon, context_dim=args.context_dim,
+                           dtype=_dtype(args))
     if args.epochs == 0:
         # dry-run shape check (the reference's train_carla_policy.py:178-188)
         dev = resolve_device(args.device)
@@ -239,8 +314,13 @@ def cmd_gating(args):
     from automoe_tpu_torch.data import get_carla_sequence_loader
 
     cfg = load_model_config(args.model_config) if args.model_config else default_model_config()
+    _no_effect(args, "gating", {
+        "remat": "the experts are frozen; the backward never crosses their backbones",
+        "qat": "experts are frozen pre-trained weights here; QAT belongs to the expert "
+               "trainers whose checkpoints feed this stage",
+        "augment": "expert pipelines only"})
     wl = W.gating_workload(cfg, loss_config=json.loads(args.loss_config or "{}"),
-                           freeze_experts=not args.unfreeze_experts)
+                           freeze_experts=not args.unfreeze_experts, dtype=_dtype(args))
     train, val = _sized_loaders(get_carla_sequence_loader, args,
                                 horizon=cfg.policy.num_waypoints)
     trainer = _graft_init_from(Trainer(wl, train, val, _train_cfg(args, "gating")), args)
@@ -250,6 +330,9 @@ def cmd_gating(args):
     # relaunch; a relaunch that found nothing to restore still grafts
     if args.expert_ckpts and not trainer.resumed:
         load_expert_checkpoints(trainer.model, cfg, args.expert_ckpts.split(","))
+        # the JAX CLI leaves its EMA at the random init here; the port's
+        # starts at the grafted weights, so serve --ema gets the experts
+        trainer.reset_ema()
     return trainer.fit(_args_dump(args))
 
 

@@ -1,16 +1,37 @@
 """Training loop (port of automoe_tpu/train/loop.py: TrainConfig and the
-Trainer's single-step epoch, validation, checkpointing, resume and fit).
+Trainer's epochs, grouped epochs, validation, checkpointing, resume and
+fit).
 
 Epoch structure as in the JAX package: the loader reshuffles per epoch,
-the train loss is the mean over the epoch's steps, validation averages
+the train loss is the mean over the epoch's losses, validation averages
 each scalar metric over batches (a repeat-padded tail batch is trimmed
 to its real rows and weighted by its real fraction), each epoch logs
 to runs/<workload>_<run>/metrics.jsonl, and each epoch ends in
 `CheckpointManager.save_epoch` under <ckpt_root>/<workload>/<run>/.
-Batches go host→device from pinned memory with non_blocking copies. The
-step's metrics are read back and logged every step (the JAX Trainer logs
-every `log_every` steps). The gradient clip is the JAX package's default,
-global norm 1.0.
+Batches go host→device from pinned memory with non_blocking copies.
+
+Stepping modes, as in the JAX Trainer:
+  * single steps (default);
+  * steps_per_call K > 1: K loader batches stacked into one pinned
+    buffer per key, one copy, K optimizer steps in one call
+    (train/step.py::make_scan_train_step);
+  * grad_accum K > 1: K loader batches, one optimizer step from their
+    averaged gradients (make_grad_accum_train_step). The schedule then
+    counts optimizer steps: len(loader) // K + len(loader) % K an epoch.
+The two are exclusive. A tail of fewer than K batches runs as single
+steps.
+
+The host never waits for a step it has just launched: at most
+`max_inflight` losses stay unread on the device (0 reads every step's
+loss at once), and step metrics are read and logged every `log_every`
+optimizer steps. `debug_nans` runs the epochs under
+torch.autograd.detect_anomaly and raises at the first non-finite loss
+(reading every loss).
+
+With ema_decay > 0 the optimizer keeps an EMA of the parameters
+(train/state.py::EMA); each epoch validates it too (logged `val_ema`),
+and it, not the raw weights, decides the best checkpoint. `profile_dir`
+records a torch.profiler trace of the first trained epoch there.
 
 Resume as in the JAX Trainer: resume='model' loads weights and BatchNorm
 statistics and starts at epoch 0; resume='full' also loads the optimizer
@@ -20,17 +41,24 @@ skips the consumed batches at the index level.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import time
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from automoe_tpu_torch.ckpt.checkpoint import CheckpointManager
 from automoe_tpu_torch.train.state import make_optimizer
-from automoe_tpu_torch.train.step import make_eval_step, make_train_step
+from automoe_tpu_torch.train.step import (
+    make_eval_step,
+    make_grad_accum_train_step,
+    make_scan_train_step,
+    make_train_step,
+)
 from automoe_tpu_torch.train.workloads import Workload
 from automoe_tpu_torch.utils import resolve_device
 from automoe_tpu_torch.utils.metrics import MetricsLogger
@@ -42,6 +70,7 @@ class TrainConfig:
     epochs: int = 1
     learning_rate: float = 2e-4
     weight_decay: float = 1e-4
+    grad_clip: float = 1.0  # global-norm clip
     optimizer: str = "adamw"  # 'adamw' | 'sgd'
     schedule: str = "cosine"  # 'cosine' | 'constant' | 'cosine_per_epoch'
     seed: int = 0
@@ -55,26 +84,50 @@ class TrainConfig:
     async_ckpt: bool = False
     resume: Optional[str] = None  # 'model' | 'full'
     resume_from: str = "last"  # best | last | epoch_N | step
-    # N>0 writes a mid-epoch `step` checkpoint every N optimizer steps
+    log_every: int = 50  # log a step's metrics every N optimizer steps
+    # losses left unread on the device before the host waits on the
+    # oldest (0 = read every step's loss)
+    max_inflight: int = 2
+    steps_per_call: int = 1  # K>1: K optimizer steps per call
+    profile_dir: Optional[str] = None  # torch.profiler trace of the first epoch
+    # N>0 writes a mid-epoch `step` checkpoint every N loader batches
     save_every_steps: int = 0
+    grad_accum: int = 1  # K>1: one optimizer step from K loader batches
+    ema_decay: float = 0.0  # d>0: EMA of the parameters, validated and saved
+    debug_nans: bool = False  # anomaly detection + raise on a non-finite loss
     device: Optional[str] = None  # default cuda
+
+
+def _optimizer_steps_per_epoch(n_batches: int, grad_accum: int) -> int:
+    """What the schedule counts an epoch: with grad_accum K, K batches
+    make one step and the n % K tail batches one step each."""
+    n = max(1, n_batches)
+    return max(1, n // grad_accum + n % grad_accum) if grad_accum > 1 else n
 
 
 class Trainer:
     def __init__(self, workload: Workload, train_loader, val_loader, config: TrainConfig):
+        if config.grad_accum > 1 and config.steps_per_call > 1:
+            raise ValueError("grad_accum > 1 and steps_per_call > 1 are exclusive "
+                             "(both group loader batches into one call)")
         self.wl = workload
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.cfg = config
         self.device = resolve_device(config.device)
         self.model = workload.init_model(config.seed, self.device)
-        batches_per_epoch = max(1, len(train_loader))
+        bpe = _optimizer_steps_per_epoch(len(train_loader), config.grad_accum)
         self.optimizer = make_optimizer(
             self.model.named_parameters(), learning_rate=config.learning_rate,
-            weight_decay=config.weight_decay, total_steps=config.epochs * batches_per_epoch,
-            optimizer=config.optimizer, trainable_mask=workload.trainable_mask(self.model),
-            schedule=config.schedule, steps_per_epoch=batches_per_epoch)
+            weight_decay=config.weight_decay, total_steps=config.epochs * bpe,
+            grad_clip=config.grad_clip, optimizer=config.optimizer,
+            trainable_mask=workload.trainable_mask(self.model), schedule=config.schedule,
+            steps_per_epoch=bpe, ema_decay=config.ema_decay)
         self.train_step = make_train_step(workload.loss_fn)
+        self.scan_step = (make_scan_train_step(workload.loss_fn)
+                          if config.steps_per_call > 1 else None)
+        self.accum_step = (make_grad_accum_train_step(workload.loss_fn)
+                           if config.grad_accum > 1 else None)
         self.eval_step = make_eval_step(workload.loss_fn)
         self.ckpt = CheckpointManager(config.ckpt_root, workload.name, config.run_name,
                                       save_freq=config.save_freq,
@@ -94,17 +147,38 @@ class Trainer:
                     self.start_epoch = epoch + 1
             self.resumed = self.ckpt.last_restore_loaded
         self._step_save_marker = 0
+        self._pending: List[torch.Tensor] = []  # unread losses, oldest first
+        self._loss_sum, self._loss_n = 0.0, 0
 
-    def _device_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
+    def reset_ema(self) -> None:
+        """Start the EMA again at the parameters: after weights were
+        grafted into fresh state (--init-from, --expert-ckpts)."""
+        if self.optimizer.ema is not None:
+            self.optimizer.ema.reset()
+
+    def _to_device(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         out = {}
-        for k, v in batch.items():
-            if isinstance(v, list) or k == "_real_count":
-                continue
+        for k, v in arrays.items():
             t = torch.as_tensor(v)
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out[k] = t
         return out
+
+    @staticmethod
+    def _arrays(batch: Dict) -> Dict:
+        return {k: v for k, v in batch.items() if not isinstance(v, list) and k != "_real_count"}
+
+    def _device_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        return self._to_device(self._arrays(batch))
+
+    def _device_group(self, group: List[Dict]) -> Dict[str, torch.Tensor]:
+        """K host batches stacked [K, B, ...] into one buffer per key (over
+        the keys all of them carry), one copy each."""
+        arrays = [self._arrays(b) for b in group]
+        keys = set(arrays[0]).intersection(*arrays[1:])
+        return self._to_device({k: np.stack([np.asarray(a[k]) for a in arrays])
+                                for k in sorted(keys)})
 
     def _set_epoch_with_skip(self, epoch: int) -> tuple[int, int]:
         """Reshuffle for `epoch` and, when resuming it mid-way, skip the
@@ -121,82 +195,141 @@ class Trainer:
 
     def _maybe_save_step(self, epoch: int, consumed: int) -> None:
         """Write the `step` checkpoint when `consumed` batches cross a
-        save_every_steps boundary."""
+        save_every_steps boundary (a group crossing one writes it after
+        the group)."""
         s = self.cfg.save_every_steps
         if s and consumed // s > self._step_save_marker:
             self._step_save_marker = consumed // s
             self.ckpt.save_step(self.model, self.optimizer, epoch, consumed)
+
+    def _read_losses(self, limit: int) -> None:
+        """Read the oldest unread losses until at most `limit` remain."""
+        while len(self._pending) > limit:
+            losses = self._pending.pop(0).float().reshape(-1).tolist()
+            if self.cfg.debug_nans and not all(map(math.isfinite, losses)):
+                raise FloatingPointError(f"non-finite train loss {losses} "
+                                         f"(optimizer step {self.optimizer.count})")
+            self._loss_sum += sum(losses)
+            self._loss_n += len(losses)
+
+    def _dispatch(self, step_fn, db: Dict[str, torch.Tensor], steps: int) -> None:
+        """Launch `step_fn` (`steps` optimizer steps) without waiting for
+        it, read what the in-flight bound asks for, log every log_every
+        optimizer steps."""
+        inflight = 0 if self.cfg.debug_nans else max(0, self.cfg.max_inflight)
+        self.timer.start()
+        metrics = step_fn(self.model, self.optimizer, db,
+                          (self.cfg.seed + 1, self.optimizer.count))
+        self.timer.stop()
+        self._pending.append(metrics["loss"])
+        self._read_losses(inflight)
+        if self.optimizer.count % self.cfg.log_every < steps:
+            # steps per call return stacked metrics: log the last step's
+            last = torch.stack([v.float().reshape(-1)[-1] for v in metrics.values()]).tolist()
+            self.logger.log(self.optimizer.count,
+                            {**dict(zip(metrics, last)), **self.timer.stats()},
+                            prefix="train")
+
+    def _mode(self):
+        """(K loader batches per call, step function, optimizer steps per call)."""
+        if self.scan_step is not None:
+            return self.cfg.steps_per_call, self.scan_step, self.cfg.steps_per_call
+        if self.accum_step is not None:
+            return self.cfg.grad_accum, self.accum_step, 1
+        return 1, self.train_step, 1
 
     def train_epoch(self, epoch: int) -> float:
         s = self.cfg.save_every_steps
         self._step_save_marker = (self.start_batch // s
                                   if s and epoch == self.start_epoch else 0)
         consumed0, skip_in_loop = self._set_epoch_with_skip(epoch)
-        total, n = 0.0, 0
+        k, step_fn, steps = self._mode()
+        self._loss_sum, self._loss_n = 0.0, 0
         t0 = time.time()
-        for i, batch in enumerate(self.train_loader):
-            if i < skip_in_loop:
-                continue
-            db = self._device_batch(batch)
-            # dropout draws from torch's global generator: seed it from
-            # (seed, step), as the JAX step folds the step into its dropout
-            # key, so a resumed run draws the masks of an uninterrupted one
-            torch.manual_seed(int(np.random.SeedSequence(
-                (self.cfg.seed + 1, self.optimizer.count)).generate_state(1)[0]))
-            self.timer.start()
-            metrics = self.train_step(self.model, self.optimizer, db)
-            self.timer.stop()
-            # one device→host copy for all of the step's scalars
-            scalars = dict(zip(metrics, torch.stack([v.float() for v in metrics.values()])
-                               .tolist()))
-            total += scalars["loss"]
-            n += 1
-            self.logger.log(self.optimizer.count, scalars, prefix="train")
-            self._maybe_save_step(epoch, consumed0 + i + 1)
-        avg = total / max(1, n)
+        anomaly = (torch.autograd.detect_anomaly(check_nan=True) if self.cfg.debug_nans
+                   else contextlib.nullcontext())
+        with anomaly:
+            group: List[Dict] = []
+            last_i = -1
+            for i, batch in enumerate(self.train_loader):
+                if i < skip_in_loop:
+                    continue
+                last_i = i
+                group.append(batch)
+                if len(group) < k:
+                    continue
+                db = self._device_batch(group[0]) if k == 1 else self._device_group(group)
+                group = []
+                self._dispatch(step_fn, db, steps)
+                self._maybe_save_step(epoch, consumed0 + i + 1)
+            # the tail of fewer than K batches: single steps
+            tail0 = last_i - len(group) + 1
+            for j, b in enumerate(group):
+                self._dispatch(self.train_step, self._device_batch(b), 1)
+                self._maybe_save_step(epoch, consumed0 + tail0 + j + 1)
+            self._read_losses(0)
+        n = self._loss_n
+        avg = self._loss_sum / max(1, n)
         dt = time.time() - t0
         self.logger.log(self.optimizer.count, {"loss_epoch": avg, "epoch_seconds": dt,
-                                          "steps_per_sec": n / max(dt, 1e-9)}, prefix="train")
+                                               "steps_per_sec": n / max(dt, 1e-9)},
+                        prefix="train")
         return avg
 
-    def validate(self, epoch: int) -> float:
+    def validate(self, epoch: int, *, use_ema: bool = False, prefix: str = "val") -> float:
+        """Validation epoch: loss and every scalar metric averaged over
+        batches, logged under `prefix`. use_ema=True evaluates the EMA
+        weights (with the model's BatchNorm statistics)."""
+        weights = self.optimizer.ema.applied() if use_ema else contextlib.nullcontext()
         sums: Dict[str, float] = {}
         n = 0.0
-        for batch in self.val_loader:
-            real = batch.get("_real_count") if isinstance(batch, dict) else None
-            db = self._device_batch(batch)
-            w = 1.0
-            if real is not None:
-                real = int(real)
-                w = real / max(1, next(iter(db.values())).shape[0])
-                db = {k: v[:real] for k, v in db.items()}
-            metrics = self.eval_step(self.model, db)
-            for k, v in metrics.items():
-                if getattr(v, "ndim", 1) == 0 or isinstance(v, (int, float)):
-                    sums[k] = sums.get(k, 0.0) + float(v) * w
-            n += w
+        with weights:
+            for batch in self.val_loader:
+                real = batch.get("_real_count") if isinstance(batch, dict) else None
+                db = self._device_batch(batch)
+                w = 1.0
+                if real is not None:
+                    real = int(real)
+                    w = real / max(1, next(iter(db.values())).shape[0])
+                    db = {k: v[:real] for k, v in db.items()}
+                metrics = self.eval_step(self.model, db)
+                for k, v in metrics.items():
+                    if getattr(v, "ndim", 1) == 0 or isinstance(v, (int, float)):
+                        sums[k] = sums.get(k, 0.0) + float(v) * w
+                n += w
         denom = n if n > 0 else 1.0
         avg = {k: v / denom for k, v in sums.items()}
-        self.logger.log(self.optimizer.count, avg, prefix="val")
+        self.logger.log(self.optimizer.count, avg, prefix=prefix)
         return avg.get("loss", float("inf"))
 
     def fit(self, config_dump: Optional[Dict] = None) -> Dict[str, float]:
         """Train, validate and checkpoint every epoch from start_epoch;
         config_dump (default: the TrainConfig) goes to config.json beside
-        the checkpoints. Returns the best val loss (a resumed run's
-        included) and the train step-time statistics (device time on
-        CUDA)."""
+        the checkpoints. Returns the best val loss (of the EMA weights when
+        there is an EMA; a resumed run's included) and the train
+        step-time statistics (per call; device time on CUDA)."""
+        from automoe_tpu_torch.utils.profiling import trace
+
         config_dump = config_dump if config_dump is not None else dataclasses.asdict(self.cfg)
         best = self.ckpt.best_val
         for epoch in range(self.start_epoch, self.cfg.epochs):
-            train_loss = self.train_epoch(epoch)
-            val_loss = self.validate(epoch)
+            profiling = (trace(self.cfg.profile_dir)
+                         if self.cfg.profile_dir and epoch == self.start_epoch
+                         else contextlib.nullcontext())
+            with profiling:
+                train_loss = self.train_epoch(epoch)
+            raw_val = val_loss = self.validate(epoch)
+            ema_note = ""
+            if self.optimizer.ema is not None:
+                # the EMA is what an --ema-decay run deploys: it decides best
+                val_loss = self.validate(epoch, use_ema=True, prefix="val_ema")
+                ema_note = f" ema {val_loss:.4f}"
             is_best = self.ckpt.save_epoch(self.model, self.optimizer, epoch, val_loss,
                                            config_dump)
             best = min(best, val_loss)
             print(f"[{self.wl.name}] epoch {epoch + 1}/{self.cfg.epochs} "
-                  f"train {train_loss:.4f} val {val_loss:.4f}" + (" *best*" if is_best else ""),
-                  flush=True)
+                  f"train {train_loss:.4f} val {raw_val:.4f}" + ema_note
+                  + (" *best*" if is_best else ""), flush=True)
         self.ckpt.wait()  # queued writes land before callers read them
         stats = self.timer.stats()
         self.logger.log(self.optimizer.count, stats, prefix="train")

@@ -19,13 +19,70 @@ below is that chain written out in PyTorch with optax's arithmetic:
 
 `state_dict()` / `load_state_dict()` carry the step count and the moments,
 so a resumed run continues the same trajectory, schedule included.
+
+`EMA` is the JAX TrainState's `ema_params`: an exponential moving average
+of every parameter (frozen ones included), e ← e·d + p·(1−d) after each
+optimizer step, started as a copy of the parameters (no bias
+correction); BatchNorm statistics are not averaged. An optimizer made
+with ema_decay > 0 owns one and updates it at the end of `step()`, as the
+JAX package updates it inside `apply_gradients`, so every stepping mode
+(single, steps per call, accumulation) carries it.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Iterable, Mapping, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, Mapping, Optional, Tuple
 
 import torch
+
+
+class EMA:
+    """Exponential moving average of named parameters."""
+
+    def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]], decay: float):
+        named = list(named_params)
+        self.decay = float(decay)
+        self.names = [n for n, _ in named]
+        self.params: List[torch.Tensor] = [p for _, p in named]
+        # a real copy: the average must not alias the parameters
+        self.shadow: List[torch.Tensor] = [p.detach().clone() for p in self.params]
+
+    @torch.no_grad()
+    def update(self) -> None:
+        torch._foreach_mul_(self.shadow, self.decay)
+        torch._foreach_add_(self.shadow, [p.detach() for p in self.params],
+                            alpha=1.0 - self.decay)
+
+    @torch.no_grad()
+    def reset(self) -> None:
+        """Start again at the parameters (after weights were loaded into them)."""
+        torch._foreach_copy_(self.shadow, [p.detach() for p in self.params])
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The averages by parameter name (the live tensors)."""
+        return dict(zip(self.names, self.shadow))
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: Mapping[str, torch.Tensor]) -> None:
+        missing = sorted(set(self.names) - set(sd))
+        if missing:
+            raise KeyError(f"EMA state lacks {len(missing)} parameters: {missing[:5]}")
+        torch._foreach_copy_(self.shadow, [sd[n].to(s.device, s.dtype)
+                                           for n, s in zip(self.names, self.shadow)])
+
+    @contextlib.contextmanager
+    def applied(self) -> Iterator[None]:
+        """The averages in the parameters' place for the block, the
+        parameters restored bit for bit after it."""
+        with torch.no_grad():
+            saved = [p.detach().clone() for p in self.params]
+            torch._foreach_copy_(self.params, self.shadow)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                torch._foreach_copy_(self.params, saved)
 
 
 class Optimizer:
@@ -35,7 +92,7 @@ class Optimizer:
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]], *,
                  learning_rate: float, weight_decay: float, total_steps: int,
                  grad_clip: float, eta_min: float, trainable_mask: Optional[Mapping[str, bool]],
-                 schedule: str, optimizer: str, steps_per_epoch: int):
+                 schedule: str, optimizer: str, steps_per_epoch: int, ema_decay: float = 0.0):
         if schedule not in ("cosine", "constant", "cosine_per_epoch"):
             raise ValueError(f"unknown schedule {schedule}")
         if schedule == "cosine_per_epoch" and steps_per_epoch <= 0:
@@ -43,7 +100,10 @@ class Optimizer:
         if optimizer not in ("adamw", "sgd"):
             raise ValueError(f"unknown optimizer {optimizer}")
         mask = trainable_mask or {}
-        self.params = [(n, p) for n, p in named_params if mask.get(n, True)]
+        named = list(named_params)
+        self.params = [(n, p) for n, p in named if mask.get(n, True)]
+        # the average covers every parameter, frozen ones too, as JAX's does
+        self.ema = EMA(named, ema_decay) if ema_decay > 0.0 else None
         self.learning_rate = learning_rate
         self.weight_decay = weight_decay
         self.total_steps = max(total_steps, 1)
@@ -102,7 +162,12 @@ class Optimizer:
         if self.optimizer == "sgd":
             for (_, p), g in zip(self.params, grads):
                 p.add_(step_size * g)
-            return
+        else:
+            self._adamw(grads, step_size)
+        if self.ema is not None:
+            self.ema.update()
+
+    def _adamw(self, grads, step_size: float) -> None:
         b1, b2, eps = 0.9, 0.999, 1e-8
         c = torch.tensor(float(self.count), dtype=torch.float32)
         bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** c
@@ -121,11 +186,12 @@ def make_optimizer(named_params: Iterable[Tuple[str, torch.nn.Parameter]], *,
                    grad_clip: float = 1.0, eta_min: float = 0.0,
                    trainable_mask: Optional[Mapping[str, bool]] = None,
                    schedule: str = "cosine", optimizer: str = "adamw",
-                   steps_per_epoch: int = 0) -> Optimizer:
+                   steps_per_epoch: int = 0, ema_decay: float = 0.0) -> Optimizer:
     """The JAX package's optimizer over `named_params` (e.g.
     model.named_parameters()); trainable_mask maps a parameter name to
-    False to freeze it."""
+    False to freeze it; ema_decay > 0 keeps an `EMA` of every parameter
+    (`Optimizer.ema`)."""
     return Optimizer(named_params, learning_rate=learning_rate, weight_decay=weight_decay,
                      total_steps=total_steps, grad_clip=grad_clip, eta_min=eta_min,
                      trainable_mask=trainable_mask, schedule=schedule, optimizer=optimizer,
-                     steps_per_epoch=steps_per_epoch)
+                     steps_per_epoch=steps_per_epoch, ema_decay=ema_decay)

@@ -4,9 +4,22 @@ of automoe_tpu/train/workloads.py): the BDD / CARLA experts
 expert (`nuscenes_workload`, camera + LiDAR), its CARLA image-only 2D
 fine-tune (`carla_nuscenes_2d_workload`), the standalone trajectory
 policy (`policy_workload`, 4-conv backbone only) and the gating network
-over the full AutoMoE (`gating_workload`)."""
+over the full AutoMoE (`gating_workload`).
+
+Training options, as in the JAX package's factories:
+  * dtype=torch.bfloat16 runs the forward under autocast (bf16 convs and
+    matmuls) while parameters, their gradients and the optimizer stay
+    float32; the outputs are cast to float32 before the loss, so losses
+    reduce in float32;
+  * remat and qat build the ResNet-18 trunks with checkpointed blocks and
+    int8 fake-quant (models/resnet.py);
+  * augment crops, flips and jitters train batches on the device
+    (ops/augment.py) with parameters drawn from the step's key;
+    validation is never augmented.
+"""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
@@ -34,10 +47,60 @@ from automoe_tpu_torch.models.policy import TrajectoryPolicy
 from automoe_tpu_torch.ops.boxes import box_convert
 from automoe_tpu_torch.ops.masked import masked_cross_entropy, masked_smooth_l1
 
-# loss_fn(model, batch, train) -> (loss, metrics): batch holds tensors on
-# the model's device, images NHWC as the loaders give them
-LossFn = Callable[[nn.Module, Dict[str, torch.Tensor], bool],
-                  Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+# loss_fn(model, batch, train, key=None) -> (loss, metrics): batch holds
+# tensors on the model's device, images NHWC as the loaders give them;
+# key (a tuple of ints, train/step.py) seeds what the loss draws itself
+LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+
+#: folded into a step's key for its augmentation draw (the JAX package
+#: folds the same constant into its step key)
+AUGMENT_FOLD = 0x41554721
+
+
+def autocast(device: torch.device, dtype: torch.dtype):
+    """bf16 autocast on `device` for dtype=torch.bfloat16, else nothing."""
+    if dtype == torch.bfloat16:
+        return torch.autocast(device.type, dtype=torch.bfloat16)
+    if dtype != torch.float32:
+        raise ValueError(f"compute dtype {dtype}: float32 or bfloat16")
+    return contextlib.nullcontext()
+
+
+def _float(out):
+    """Model outputs in float32 (dicts and lists of tensors included)."""
+    if torch.is_tensor(out):
+        return out.float()
+    if isinstance(out, dict):
+        return {k: _float(v) for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return type(out)(_float(v) for v in out)
+    return out
+
+
+def _train_augment(enabled: bool, labels: str):
+    """(batch, train, key) -> the batch, augmented in train mode when
+    enabled, its `labels` ("boxes" or "mask") moved with the image. The
+    parameters are drawn from the step's key (without one, from torch's
+    default generator)."""
+    from automoe_tpu_torch.ops.augment import (AugmentConfig, augment_detection,
+                                               augment_segmentation, params_to,
+                                               sample_params)
+    from automoe_tpu_torch.train.step import seed_from
+
+    cfg = AugmentConfig()
+
+    def apply(batch, train, key):
+        if not (enabled and train):
+            return batch
+        gen = torch.Generator().manual_seed(
+            int(torch.randint(0, 2**31 - 1, ())) if key is None
+            else seed_from((*key, AUGMENT_FOLD)))
+        image = batch["image"]
+        params = params_to(sample_params(gen, image.shape[0], cfg), image.device)
+        return (augment_detection(batch, params, cfg) if labels == "boxes"
+                else augment_segmentation(batch, params))
+
+    return apply
 
 
 @dataclasses.dataclass
@@ -74,7 +137,9 @@ def default_matcher(device) -> str:
 def bdd_expert_workload(task: str, *, num_classes: Optional[int] = None,
                         bbox_loss_weight: float = 2.0, cost_class: float = 1.0,
                         cost_bbox: float = 5.0, cost_giou: float = 2.0,
-                        matcher: Optional[str] = None) -> Workload:
+                        matcher: Optional[str] = None, dtype: torch.dtype = torch.float32,
+                        remat: bool = False, qat: bool = False,
+                        augment: bool = False) -> Workload:
     """BDD100K expert training and its CARLA fine-tune (the same workload
     over another data source). Detection: matcher None is
     `default_matcher` of the device the batch lies on, and validation adds
@@ -84,12 +149,16 @@ def bdd_expert_workload(task: str, *, num_classes: Optional[int] = None,
     images; the image size and box cap are the data's."""
     C = {"detection": 10, "segmentation": 19, "drivable": 3}[task] \
         if num_classes is None else num_classes
+    opts = dict(remat=remat, qat=qat)
     if task != "detection":
-        return _seg_like_workload(task, C)
+        return _seg_like_workload(task, C, dtype, opts, augment)
+    augmented = _train_augment(augment, "boxes")
 
-    def loss_fn(model, batch, train):
+    def loss_fn(model, batch, train, key=None):
+        batch = augmented(batch, train, key)
         image = batch["image"]
-        out = model(image.permute(0, 3, 1, 2))
+        with autocast(image.device, dtype):
+            out = _float(model(image.permute(0, 3, 1, 2)))
         res = detection_set_loss(
             out["class_logits"], out["bbox_deltas"], batch["bboxes"], batch["labels"],
             num_classes=C, bbox_loss_weight=bbox_loss_weight, cost_class=cost_class,
@@ -108,13 +177,20 @@ def bdd_expert_workload(task: str, *, num_classes: Optional[int] = None,
             metrics["recall_0.5"] = torch.where(has, sr, torch.zeros_like(sr)).sum() / denom
         return res["loss"], metrics
 
-    return Workload(name=f"bdd_{task}", build_model=lambda: BDDDetectionExpert(num_classes=C),
+    return Workload(name=f"bdd_{task}",
+                    build_model=lambda: BDDDetectionExpert(num_classes=C, **opts),
                     loss_fn=loss_fn)
 
 
-def _seg_like_workload(task: str, C: int) -> Workload:
-    def loss_fn(model, batch, train):
-        logits = model(batch["image"].permute(0, 3, 1, 2))  # [B,C,H,W]
+def _seg_like_workload(task: str, C: int, dtype: torch.dtype, opts: Dict[str, bool],
+                       augment: bool) -> Workload:
+    augmented = _train_augment(augment, "mask")
+
+    def loss_fn(model, batch, train, key=None):
+        batch = augmented(batch, train, key)
+        image = batch["image"]
+        with autocast(image.device, dtype):
+            logits = _float(model(image.permute(0, 3, 1, 2)))  # [B,C,H,W]
         res = segmentation_loss(logits, batch["mask"])
         metrics = {}
         if not train:
@@ -124,7 +200,7 @@ def _seg_like_workload(task: str, C: int) -> Workload:
         return res["loss"], metrics
 
     model = BDDSegmentationExpert if task == "segmentation" else BDDDrivableExpert
-    return Workload(name=f"bdd_{task}", build_model=lambda: model(num_classes=C),
+    return Workload(name=f"bdd_{task}", build_model=lambda: model(num_classes=C, **opts),
                     loss_fn=loss_fn)
 
 
@@ -135,14 +211,17 @@ def _seg_like_workload(task: str, C: int) -> Workload:
 def nuscenes_workload(*, num_queries: int = 100, bbox_dim: int = 7, use_lidar: bool = True,
                       use_tnet: bool = False, fusion: str = "concat",
                       bbox_loss_weight: float = 5.0,
-                      matcher: Optional[str] = None) -> Workload:
+                      matcher: Optional[str] = None, dtype: torch.dtype = torch.float32,
+                      remat: bool = False, qat: bool = False) -> Workload:
     """nuScenes expert training: camera (+ LiDAR points through the
     PointNet), the set loss of `losses/nuscenes.py` with `default_matcher`
-    of the batch's device unless `matcher` names one."""
+    of the batch's device unless `matcher` names one. No augmentation, as
+    in the JAX package."""
 
-    def loss_fn(model, batch, train):
+    def loss_fn(model, batch, train, key=None):
         image = batch["image"]
-        out = model(image.permute(0, 3, 1, 2), batch.get("lidar"))
+        with autocast(image.device, dtype):
+            out = _float(model(image.permute(0, 3, 1, 2), batch.get("lidar")))
         res = nuscenes_set_loss(out["class_logits"], out["bbox_preds"], batch["boxes"],
                                 batch["labels"], bbox_loss_weight=bbox_loss_weight,
                                 matcher=matcher or default_matcher(image.device))
@@ -152,23 +231,29 @@ def nuscenes_workload(*, num_queries: int = 100, bbox_dim: int = 7, use_lidar: b
         name="nuscenes",
         build_model=lambda: NuScenesExpert(num_queries=num_queries, fusion=fusion,
                                            use_lidar=use_lidar, use_tnet=use_tnet,
-                                           bbox_dim=bbox_dim),
+                                           bbox_dim=bbox_dim, remat=remat, qat=qat),
         loss_fn=loss_fn)
 
 
 def carla_nuscenes_2d_workload(*, num_queries: int = 196, num_classes: int = 10,
                                bbox_loss_weight: float = 1.0,
-                               matcher: Optional[str] = None) -> Workload:
+                               matcher: Optional[str] = None,
+                               dtype: torch.dtype = torch.float32, remat: bool = False,
+                               qat: bool = False, augment: bool = False) -> Workload:
     """The nuScenes → CARLA image-only 2D fine-tune (the reference's
     train_carla_nuscenes_expert_2d_ddp.py): xyxy targets as cxcywh, an
     exact match ('hungarian': K2 alone on the card, scipy on the CPU,
     unless `matcher` names another), CE over matched queries only (ignore
     index C) and SmoothL1
-    over matched queries, weight 1.0."""
+    over matched queries, weight 1.0. With augment, train batches are
+    augmented as the detection expert's (pixel xyxy boxes)."""
+    augmented = _train_augment(augment, "boxes")
 
-    def loss_fn(model, batch, train):
+    def loss_fn(model, batch, train, key=None):
+        batch = augmented(batch, train, key)
         image = batch["image"]
-        out = model(image.permute(0, 3, 1, 2))
+        with autocast(image.device, dtype):
+            out = _float(model(image.permute(0, 3, 1, 2)))
         logits, boxes = out["pred_logits"], out["pred_boxes"]
         B, Q, C = logits.shape
         tgt = box_convert(batch["bboxes"].float(), "xyxy", "cxcywh")
@@ -185,7 +270,7 @@ def carla_nuscenes_2d_workload(*, num_queries: int = 196, num_classes: int = 10,
     return Workload(
         name="carla_nuscenes_2d",
         build_model=lambda: NuScenesImage2DHead(num_queries=num_queries,
-                                                num_classes=num_classes),
+                                                num_classes=num_classes, remat=remat, qat=qat),
         loss_fn=loss_fn)
 
 
@@ -194,7 +279,7 @@ def carla_nuscenes_2d_workload(*, num_queries: int = 196, num_classes: int = 10,
 # ---------------------------------------------------------------------------
 
 def policy_workload(*, horizon: int = 8, context_dim: int = 0,
-                    trunk_depth: int = 0) -> Workload:
+                    trunk_depth: int = 0, dtype: torch.dtype = torch.float32) -> Workload:
     """Standalone TrajectoryPolicy training (the reference's
     train_carla_policy.py): loss = ADE + 2 FDE + 0.2 speed L1 + 0.1
     smoothness. With context_dim > 0 the batch's `context` vector feeds
@@ -202,9 +287,11 @@ def policy_workload(*, horizon: int = 8, context_dim: int = 0,
     if trunk_depth > 0:
         raise NotImplementedError("the deep policy trunk (--trunk-depth) is not ported yet")
 
-    def loss_fn(model, batch, train):
+    def loss_fn(model, batch, train, key=None):
         ctx = batch.get("context") if context_dim > 0 else None
-        out = model(batch["image"].permute(0, 3, 1, 2), ctx)
+        image = batch["image"]
+        with autocast(image.device, dtype):
+            out = _float(model(image.permute(0, 3, 1, 2), ctx))
         res = policy_losses(out, batch["waypoints"], batch["speed"])
         return res["loss"], {k: v for k, v in res.items() if k != "loss"}
 
@@ -229,7 +316,8 @@ def pooled_feature_dim(ecfg) -> int:
 
 
 def gating_workload(model_config: Any, *, loss_config: Optional[Mapping] = None,
-                    freeze_experts: bool = True) -> Workload:
+                    freeze_experts: bool = True,
+                    dtype: torch.dtype = torch.float32) -> Workload:
     """Gating training over the full AutoMoE (the reference's
     train_gating_network.py): the experts are frozen (no gradient, no
     update) while the extractors, context encoder, gating network and
@@ -239,8 +327,10 @@ def gating_workload(model_config: Any, *, loss_config: Optional[Mapping] = None,
     cfg: AutoMoEConfig = load_model_config(model_config)
     lcfg = dict(loss_config or {})
 
-    def loss_fn(model, batch, train):
-        res = gating_losses(model(batch), batch["waypoints"], batch["speed"], lcfg)
+    def loss_fn(model, batch, train, key=None):
+        with autocast(batch["image"].device, dtype):
+            out = _float(model(batch))
+        res = gating_losses(out, batch["waypoints"], batch["speed"], lcfg)
         return res["total_loss"], {k: v for k, v in res.items() if k != "total_loss"}
 
     return Workload(

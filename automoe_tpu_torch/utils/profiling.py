@@ -1,4 +1,10 @@
-"""Step timing (port of automoe_tpu/utils/profiling.py::StepTimer).
+"""Tracing and step timing (port of automoe_tpu/utils/profiling.py:
+`trace` and `StepTimer`).
+
+`trace(dir)` records the enclosed block with torch.profiler (host ops,
+and the card's kernels and copies when CUDA is present) and writes it to
+`<dir>/trace_<pid>_<n>.json`, a Chrome trace that Perfetto and
+chrome://tracing open.
 
 On a CUDA device each step is timed by a pair of CUDA events, read once
 they have completed, so timing adds no synchronisation. That is stream
@@ -7,11 +13,32 @@ of the step, so it is not the card's busy time. On the CPU the
 host clock times the step."""
 from __future__ import annotations
 
+import contextlib
+import itertools
+import os
 import time
-from typing import Dict, List
+from pathlib import Path
+from typing import Dict, Iterator, List
 
 import numpy as np
 import torch
+
+_TRACES = itertools.count()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[Path]:
+    """Profile the enclosed block; yields the path the trace will have."""
+    from torch.profiler import ProfilerActivity, profile
+
+    path = Path(log_dir) / f"trace_{os.getpid()}_{next(_TRACES)}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield path
+    prof.export_chrome_trace(str(path))
 
 
 class StepTimer:

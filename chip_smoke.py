@@ -84,7 +84,29 @@ Phases, each of which must pass (none is caught):
      launched, finite losses, pixel_acc and mean_iou in [0, 1]; and
      `automoe-serve-torch --quantize` with the default config's nuScenes
      expert made a LiDAR one (TNets, concat) answers 4 TCP requests, K3
-     once per server batch.
+     once per server batch;
+ 14. the trainer's step options: (a) one `--grad-accum 2` step and one
+     `--steps-per-call 2` call of the detection workload with
+     `--augment` (parameters drawn on the host from the step's key, so
+     the card and the CPU get the same ones) and an EMA, on the card (K1
+     once per microbatch and step) against the CPU (plain version), TF32
+     off, 64x64, B=2, N=4 as phase 10, without --qat (losses within
+     rtol 1e-4, parameters, statistics and EMA within rtol 1e-3 / atol
+     1e-5) and with it (the largest loss and state differences within
+     10x those between two CPU runs whose images differ by 1e-6: QAT's
+     rounding boundaries); then,
+     at PyTorch's default precision and the CLI's widths (256x256, batch
+     32, box cap 48, Q=64): (b) `bdd --task detection --bf16 --augment
+     --qat --remat --ema-decay 0.999 --grad-accum 2 --max-inflight 2
+     --profile-dir` for 1 epoch of 192 frames (K1 once per microbatch and
+     per raw and EMA val step, the trace file), and again without
+     --profile-dir (the call's stream time, samples/s, peak memory); (c) `finetune-carla --task detection
+     --steps-per-call 4` on 256 frames (K1 once per step); (d) `bdd --task segmentation
+     --augment --bf16`; (e) `gating --expert-ckpts <(b)'s best>,,,
+     --ema-decay 0.999`, its EMA of the grafted expert equal to the
+     expert (rtol 1e-6), then `automoe-serve-torch --checkpoint <gating
+     best> --ema --quantize` answers 4 TCP requests, K3 once per server
+     batch.
 
 Prints the card's name and power limit, one JSON line of kernel results,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a CUDA
@@ -661,6 +683,168 @@ def phase_other_experts(tmp: Path, frames, speeds):
     return out
 
 
+def phase_step_options_card_vs_cpu():
+    """14a: an accumulated step and a two-step call, card against CPU,
+    without and with --qat. Without, phase 10's tolerances. With, the
+    tolerance is QAT's own sensitivity, measured in the same phase: the
+    activation fake-quant rounds values that two devices compute 1e-6
+    apart, and a value on either side of a rounding boundary moves one
+    grid step (1/127 of the tensor's absmax); over three steps that
+    compounds (on the CPU alone, the same steps on images scaled by
+    1 + 1e-6 move the losses by ~4e-4 and a BatchNorm running variance by
+    ~1e-2). So the card's largest loss and state differences from the
+    CPU must stay within 10x those of the CPU's own perturbed run."""
+    import torch
+
+    from automoe_tpu_torch.ops import auction_kernel as ak
+    from automoe_tpu_torch.train.state import make_optimizer
+    from automoe_tpu_torch.train.step import make_grad_accum_train_step, make_scan_train_step
+    from automoe_tpu_torch.train.workloads import bdd_expert_workload
+
+    rng = np.random.default_rng(SEED + 14)
+    batches = []
+    for _ in range(4):
+        xy1 = rng.uniform(0.05, 0.45, (2, 4, 2)) * 64
+        xy2 = rng.uniform(0.55, 0.95, (2, 4, 2)) * 64
+        labels = rng.integers(0, 10, (2, 4)).astype(np.int32)
+        labels[0, -1] = -1
+        batches.append({"image": rng.normal(size=(2, 64, 64, 3)).astype(np.float32),
+                        "bboxes": np.concatenate([xy1, xy2], -1).astype(np.float32),
+                        "labels": labels})
+    groups = [{k: np.stack([b[k] for b in pair]) for k in pair[0]}
+              for pair in (batches[:2], batches[2:])]
+
+    def run(wl, dev, image_scale=1.0):
+        model = wl.init_model(SEED, torch.device(dev))
+        opt = make_optimizer(model.named_parameters(), learning_rate=1e-3, weight_decay=0.0,
+                             total_steps=3, optimizer="sgd", ema_decay=0.9)
+        accum, scan = make_grad_accum_train_step(wl.loss_fn), make_scan_train_step(wl.loss_fn)
+        n0 = ak.LAUNCHES["auction_solve"]
+        g = [{k: torch.from_numpy(v * image_scale if k == "image" else v).to(dev)
+              for k, v in grp.items()} for grp in groups]
+        m1 = accum(model, opt, g[0], (SEED + 1, opt.count))
+        m2 = scan(model, opt, g[1], (SEED + 1, opt.count))
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()
+                 if v.is_floating_point()}
+        state.update({f"ema.{k}": v.cpu() for k, v in opt.ema.state_dict().items()})
+        assert opt.count == 3
+        return ([float(m1["loss"])] + m2["loss"].tolist(), state,
+                ak.LAUNCHES["auction_solve"] - n0)
+
+    def diffs(a, b):
+        loss = float(np.max(np.abs(np.subtract(a[0], b[0])) / np.abs(b[0])))
+        return loss, max(float((a[1][k] - b[1][k]).abs().max()) for k in b[1])
+
+    out = {}
+    for qat in (False, True):
+        wl = bdd_expert_workload("detection", matcher="auction_kernel", qat=qat, augment=True)
+        card, cpu = run(wl, "cuda"), run(wl, "cpu")
+        assert card[2] == 4 and cpu[2] == 0, "K1 not launched once per microbatch and step"
+        loss_diff, state_diff = diffs(card, cpu)
+        res = {"losses_cuda": card[0], "losses_cpu": cpu[0], "max_loss_rel_diff": loss_diff,
+               "max_state_abs_diff": state_diff, "k1_launches_cuda": card[2]}
+        if not qat:
+            np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4)
+            for k, v in cpu[1].items():
+                np.testing.assert_allclose(card[1][k].numpy(), v.numpy(), rtol=1e-3,
+                                           atol=1e-5, err_msg=k)
+        else:
+            floor_loss, floor_state = diffs(run(wl, "cpu", np.float32(1 + 1e-6)), cpu)
+            res.update(cpu_perturbed_loss_rel_diff=floor_loss,
+                       cpu_perturbed_state_abs_diff=floor_state)
+            assert loss_diff <= 10 * max(floor_loss, 1e-6), res
+            assert state_diff <= 10 * max(floor_state, 1e-5), res
+        out["qat" if qat else "float"] = res
+        print(f"phase 14a ({'qat' if qat else 'float'}) grad-accum + steps-per-call, "
+              f"card vs CPU: {res}", flush=True)
+    return out
+
+
+def phase_step_options(tmp: Path, frames, speeds):
+    """14b-e: the step options through the entry points at full width."""
+    import torch
+
+    from automoe_tpu_torch.ckpt import load_checkpoint
+    from automoe_tpu_torch.tools.synth import (synth_bdd_detection, synth_bdd_segmentation,
+                                               synth_carla_detection, synth_carla_sequence)
+
+    out = {}
+    runs, ck = tmp / "runs", tmp / "ck"
+    common = ["--image-size", "256", "--epochs", "1", "--runs-root", str(runs),
+              "--ckpt-root", str(ck)]
+    det = ["--task", "detection", "--box-cap", "48", "--batch-size", "32"]
+    prof = tmp / "prof"
+    bdd = synth_bdd_detection(tmp / "bdd", n_per_split={"train": 192, "val": 32}, size=256,
+                              max_boxes=20, seed=SEED)
+    carla = synth_carla_detection(tmp / "carla", n_per_split={"train": 256, "val": 32},
+                                  size=256, max_boxes=20, seed=SEED)
+    seg = synth_bdd_segmentation(tmp / "seg", n_per_split={"train": 64, "val": 32}, size=256,
+                                 seed=SEED)
+    options = ["bdd", *det, "--data-root", str(bdd), "--bf16", "--augment", "--qat", "--remat",
+               "--ema-decay", "0.999", "--grad-accum", "2", "--max-inflight", "2"]
+    cases = [
+        # the trace covers the whole (one) epoch, so its times carry the
+        # profiler's cost; the same run again without it gives the times
+        ("b", options + ["--profile-dir", str(prof)], "bdd_detection", 64, 192 // 32 + 2),
+        ("b-unprofiled", options, "bdd_detection", 64, 192 // 32 + 2),
+        ("c", ["finetune-carla", *det, "--data-root", str(carla), "--steps-per-call", "4"],
+         "bdd_detection", 128, 256 // 32 + 1),
+        ("d", ["bdd", "--task", "segmentation", "--batch-size", "32", "--data-root", str(seg),
+               "--augment", "--bf16"], "bdd_segmentation", 32, 0),
+    ]
+    # samples: a call's (b: 2 microbatches, c: 4 steps of 32)
+    for name, argv, workload, samples, want in cases:
+        res, launches, peak, recs = train_cli_run(argv + common + ["--run-name", name],
+                                                  runs / f"{workload}_{name}")
+        assert launches == want, (name, launches, want)
+        losses = [r["train/loss_epoch"] for r in recs if "train/loss_epoch" in r]
+        vals = [r["val/loss"] for r in recs if "val/loss" in r]
+        assert len(losses) == len(vals) == 1 and np.isfinite(losses + vals).all(), (name, recs)
+        out[name] = dict(kernel_launches=launches, train_loss_epoch=losses, val_loss=vals,
+                         call_ms_p50=res["step_ms_p50"], call_ms_mean=res["step_ms_mean"],
+                         timed_calls=res["timed_steps"],
+                         samples_per_s=samples * 1e3 / res["step_ms_p50"],
+                         peak_memory_bytes=peak)
+        if name == "b":
+            ema = [r["val_ema/loss"] for r in recs if "val_ema/loss" in r]
+            assert len(ema) == 1 and np.isfinite(ema).all(), recs
+            traces = list(prof.glob("trace_*.json"))
+            assert traces and traces[0].stat().st_size > 0, "no profiler trace"
+            out[name].update(val_ema_loss=ema, trace_bytes=traces[0].stat().st_size)
+        if name == "d":
+            acc = [r["val/pixel_acc"] for r in recs if "val/pixel_acc" in r]
+            assert acc and all(0.0 <= a <= 1.0 for a in acc), recs
+            out[name]["pixel_acc"] = acc
+        print(f"phase 14{name}: {out[name]}", flush=True)
+
+    # (e) gating with (b)'s expert grafted and an EMA, served from its EMA
+    seq = synth_carla_sequence(tmp / "seq", n_per_split={"train": 148, "val": 26}, runs=2,
+                               size=256, seed=SEED)
+    det_best = ck / "bdd_detection" / "b" / "best.pt"
+    res, _, peak, recs = train_cli_run(
+        ["gating", "--data-root", str(seq), "--batch-size", "8", "--expert-ckpts",
+         f"{det_best},,,", "--ema-decay", "0.999", *common, "--run-name", "e"],
+        runs / "gating_e")
+    ema = [r["val_ema/loss"] for r in recs if "val_ema/loss" in r]
+    assert len(ema) == 1 and np.isfinite(ema).all(), recs
+    gating_best = ck / "gating" / "e" / "best.pt"
+    expert = load_checkpoint(det_best)["model_state_dict"]
+    g_ema = load_checkpoint(gating_best)["ema_state_dict"]
+    grafted = [k for k in expert if f"experts.0.{k}" in g_ema]
+    assert grafted
+    for k in grafted:
+        np.testing.assert_allclose(g_ema[f"experts.0.{k}"].numpy(), expert[k].numpy(),
+                                   rtol=1e-6, atol=1e-7, err_msg=k)
+    n_batches, k3 = serve_four(["--checkpoint", str(gating_best), "--ema", "--quantize"],
+                               frames, speeds)
+    out["e"] = dict(gating_val_ema_loss=ema, gating_step_ms_p50=res["step_ms_p50"],
+                    gating_peak_memory_bytes=peak, ema_params_checked=len(grafted),
+                    serve_batches=n_batches, k3_launches=k3)
+    print(f"phase 14e: {out['e']}", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def rel_err(a, b) -> float:
     a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
     return float(np.abs(a - b).mean() / (np.abs(a).mean() + 1e-12))
@@ -805,6 +989,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         other = phase_other_experts(Path(tmp), frames, speeds)
 
+    # 14. the step options: card against CPU (TF32 off), then through the
+    # entry points at the default precision
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    options_step = phase_step_options_card_vs_cpu()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+    with tempfile.TemporaryDirectory() as tmp:
+        options = phase_step_options(Path(tmp), frames, speeds)
+
     src = "automoe_tpu_torch/csrc/stem.cu"
     main_, big = k3[B_MAIN], k3[128]
     kernels = [{
@@ -827,7 +1019,9 @@ def main() -> int:
                              "serve the gating checkpoint (phase 12)":
                                  pipeline["serve_gating_int8"]["k3_launches"],
                              "serve a LiDAR nuScenes config (phase 13)":
-                                 other["serve_lidar_int8"]["k3_launches"]},
+                                 other["serve_lidar_int8"]["k3_launches"],
+                             "serve the gating checkpoint's EMA, --ema --quantize (phase 14e)":
+                                 options["e"]["k3_launches"]},
         "b128": {k: big[k] for k in ("ms", "ms_blocks", "wrapper_ms", "plain_ms", "unfused_ms",
                                      "bound_ms", "max_abs_err", "diff_frac",
                                      "mixed_sign_inv_max_abs_err",
@@ -868,7 +1062,11 @@ def main() -> int:
             "nuscenes --use-lidar --use-tnet, 2 epochs (phase 13)":
                 other["nuscenes"]["kernel_launches"],
             "nuscenes-2d, 1 epoch, max_iters=0 (phase 13)":
-                other["nuscenes-2d"]["kernel_launches"]},
+                other["nuscenes-2d"]["kernel_launches"],
+            "bdd --bf16 --augment --qat --remat --ema-decay --grad-accum 2 (phase 14b)":
+                options["b"]["kernel_launches"],
+            "finetune-carla --steps-per-call 4 (phase 14c)":
+                options["c"]["kernel_launches"]},
         **{name: {k: v[name][k] for k in ("shape", "ms", "ms_blocks", "wrapper_ms", "plain_ms",
                                           "bound_ms", "bound_by", "max_abs_err",
                                           "scipy_cost_gap", "scipy_cost_gap_rel",
@@ -883,6 +1081,7 @@ def main() -> int:
     print(json.dumps({"pipeline": pipeline}), flush=True)
     print(json.dumps({"other_experts": {"nuscenes_step_cuda_vs_cpu": nus_step, **other}}),
           flush=True)
+    print(json.dumps({"step_options": {"card_vs_cpu": options_step, **options}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

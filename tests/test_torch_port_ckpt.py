@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import tests.torch_port_common  # noqa: F401  (caps torch's threads)
+from tests.torch_port_common import tmp_path, module_tmp  # noqa: F401  (removes what tests write)
 
 S, HORIZON, B = 32, 4, 2
 MODEL_CFG = {
@@ -60,10 +61,10 @@ class CrashingLoader:
 
 
 @pytest.fixture(scope="module")
-def caches(tmp_path_factory):
+def caches(module_tmp):
     from automoe_tpu_torch.tools.synth import synth_carla_detection, synth_carla_sequence
 
-    root = tmp_path_factory.mktemp("caches")
+    root = module_tmp("caches")
     return {
         "seq": synth_carla_sequence(root / "seq", n_per_split={"train": 18, "val": 12},
                                     size=S, seed=1),
@@ -119,13 +120,13 @@ def _assert_same_state(a, b):
 
 
 @pytest.fixture(scope="module")
-def uninterrupted(caches, tmp_path_factory):
+def uninterrupted(caches, module_tmp):
     """Each workload's 2-epoch run, trained once per module."""
     out = {}
 
     def get(kind):
         if kind not in out:
-            tr = _trainer(kind, caches, tmp_path_factory.mktemp(kind), "whole")
+            tr = _trainer(kind, caches, module_tmp(kind), "whole")
             out[kind] = (tr, tr.fit())
         return out[kind]
 

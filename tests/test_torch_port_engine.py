@@ -19,6 +19,7 @@ from tests.torch_port_common import (
     port_config,
     rel_err,
     small_config,
+    tmp_path,  # noqa: F401  (removes what tests write)
 )
 
 

@@ -38,6 +38,7 @@ import torch
 
 from tests.torch_port_common import _perturb_norms
 
+from tests.torch_port_common import tmp_path, module_tmp  # noqa: F401  (removes what tests write)
 # 64 px: at 32 px the trunks' last BatchNorm normalises 2 values (1x1 maps,
 # B=2), where JAX's E[x²]−E[x]² variance turns rounding into ~1e-3
 # relative output differences, more than the tolerances below
@@ -109,10 +110,10 @@ def test_world_to_ego_matches_jax():
 
 
 @pytest.fixture(scope="module")
-def seq_root(tmp_path_factory):
+def seq_root(module_tmp):
     from automoe_tpu_torch.tools.synth import synth_carla_sequence
 
-    return synth_carla_sequence(tmp_path_factory.mktemp("seq"),
+    return synth_carla_sequence(module_tmp("seq"),
                                 n_per_split={"train": 24, "val": 16}, size=S, seed=4)
 
 
@@ -329,17 +330,17 @@ def test_controls_are_read_as_jax_reads_them(jax_gating):
 
 
 @pytest.fixture(scope="module")
-def port_gating_run(jax_gating, tmp_path_factory):
+def port_gating_run(jax_gating, module_tmp):
     from automoe_tpu_torch.ckpt import state_dict_from_jax
     from automoe_tpu_torch.train.loop import TrainConfig, Trainer
     from automoe_tpu_torch.train.workloads import gating_workload
 
-    tmp = tmp_path_factory.mktemp("gating")
+    tmp = module_tmp("gating")
     batches = _seq_batches(5)
     tr = Trainer(gating_workload(MODEL_CFG, loss_config=LCFG), batches, batches, TrainConfig(
         epochs=1, learning_rate=LR, weight_decay=0.0, optimizer="sgd",
         schedule="cosine_per_epoch", run_name="p", ckpt_root=str(tmp / "ckpt"),
-        runs_root=str(tmp / "runs"), device="cpu"))
+        runs_root=str(tmp / "runs"), device="cpu", log_every=1))
     tr.model.load_state_dict(state_dict_from_jax(jax_gating["init"], MODEL_CFG), strict=True)
     _no_dropout(tr.model)
     tr.train_epoch(0)
@@ -404,7 +405,7 @@ def test_policy_trajectory_matches_jax(group, tmp_path):
                                        "batch_stats": jax.device_get(jtr.state.batch_stats)})
 
     ptr = Trainer(policy_workload(horizon=H, context_dim=CTX), batches, batches,
-                  TrainConfig(run_name="p", device="cpu", **kw))
+                  TrainConfig(run_name="p", device="cpu", log_every=1, **kw))
     ptr.model.load_state_dict(policy_state_dict_from_jax(init), strict=True)
     ptr.train_epoch(0)
     ptr.logger.close()

@@ -36,6 +36,7 @@ import torch
 
 from tests.torch_port_common import _perturb_norms, nchw
 
+from tests.torch_port_common import tmp_path, module_tmp  # noqa: F401  (removes what tests write)
 # B=8: the PointNet's fc BatchNorms normalise over the batch alone; at
 # B=4 some channel's batch mean is ~40 batch standard deviations, where
 # float32 (and more so JAX's E[x²]−E[x]² variance) loses ~1e-4 relative
@@ -107,10 +108,10 @@ def test_boxes_to_arrays_matches_jax(boxes):
 
 
 @pytest.fixture(scope="module")
-def nus_root(tmp_path_factory):
+def nus_root(module_tmp):
     from automoe_tpu_torch.tools.synth import synth_nuscenes
 
-    root = synth_nuscenes(tmp_path_factory.mktemp("nus"), n_per_split={"train": 5, "val": 3},
+    root = synth_nuscenes(module_tmp("nus"), n_per_split={"train": 5, "val": 3},
                           size=S, points=48, max_boxes=6, seed=2)
     sample = torch.load(root / "train" / "00000.pt", weights_only=False)
     sample["boxes"], sample["token"] = _boxes(), "stubbed"  # devkit Box-likes
@@ -472,7 +473,7 @@ def _nus_batches(seed=111, n=N_STEPS):
 
 
 @pytest.fixture(scope="module")
-def trajectories(experts, tmp_path_factory):
+def trajectories(experts, module_tmp):
     """N_STEPS SGD steps of the LiDAR nuScenes workload (use_tnet, concat)
     in both packages from the same weights, dropout off: JAX with
     auction_pallas (interpret mode), the port with auction_kernel (its
@@ -510,12 +511,12 @@ def trajectories(experts, tmp_path_factory):
         losses.append(float(lv))
     final = {"params": jax.device_get(params), "batch_stats": jax.device_get(stats)}
 
-    tmp = tmp_path_factory.mktemp("traj")
+    tmp = module_tmp("traj")
     ptr = Trainer(nuscenes_workload(num_queries=Q, use_lidar=True, use_tnet=True,
                                     matcher="auction_kernel"), batches, batches,
                   TrainConfig(epochs=1, learning_rate=LR, weight_decay=0.0, optimizer="sgd",
                               run_name="p", runs_root=str(tmp / "runs"),
-                              ckpt_root=str(tmp / "ckpt"), device="cpu"))
+                              ckpt_root=str(tmp / "ckpt"), device="cpu", log_every=1))
     ptr.model.load_state_dict(expert_state_dict_from_jax(init, "nuscenes"), strict=True)
     _no_dropout(ptr.model)
     ptr.train_epoch(0)

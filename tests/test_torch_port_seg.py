@@ -30,6 +30,7 @@ import torch
 
 from tests.torch_port_common import _perturb_norms, nchw, nhwc
 
+from tests.torch_port_common import tmp_path, module_tmp  # noqa: F401  (removes what tests write)
 S, B, N_STEPS, LR = 64, 2, 3, 1e-2
 
 
@@ -38,10 +39,10 @@ S, B, N_STEPS, LR = 64, 2, 3, 1e-2
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def caches(tmp_path_factory):
+def caches(module_tmp):
     from automoe_tpu_torch.tools.synth import synth_bdd_segmentation, synth_carla_segmentation
 
-    tmp = tmp_path_factory.mktemp("seg")
+    tmp = module_tmp("seg")
     n = {"train": 5, "val": 3}
     return {
         "bdd-seg": synth_bdd_segmentation(tmp / "bs", n_per_split=n, size=32, seed=1),
@@ -254,7 +255,7 @@ def _losses(jsonl) -> list:
 
 
 @pytest.fixture(scope="module")
-def trajectories(tmp_path_factory):
+def trajectories(module_tmp):
     """N_STEPS SGD steps of the segmentation workload in both packages
     from the same weights."""
     from automoe_tpu.train.loop import TrainConfig as JaxConfig
@@ -265,7 +266,7 @@ def trajectories(tmp_path_factory):
     from automoe_tpu_torch.train.loop import TrainConfig, Trainer
     from automoe_tpu_torch.train.workloads import bdd_expert_workload
 
-    tmp = tmp_path_factory.mktemp("traj")
+    tmp = module_tmp("traj")
     batches = _seg_batches()
     wl, init = _jax_variables("segmentation", 5)
     kw = dict(epochs=1, learning_rate=LR, weight_decay=0.0, optimizer="sgd",
@@ -279,7 +280,7 @@ def trajectories(tmp_path_factory):
     final = {"params": jax.device_get(jtr.state.params),
              "batch_stats": jax.device_get(jtr.state.batch_stats)}
     ptr = Trainer(bdd_expert_workload("segmentation"), batches, batches,
-                  TrainConfig(run_name="p", device="cpu", **kw))
+                  TrainConfig(run_name="p", device="cpu", log_every=1, **kw))
     ptr.model.load_state_dict(expert_state_dict_from_jax(init, "segmentation"), strict=True)
     ptr.train_epoch(0)
     ptr.logger.close()

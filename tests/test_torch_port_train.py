@@ -16,6 +16,7 @@ import torch
 
 from tests.torch_port_common import _perturb_norms
 
+from tests.torch_port_common import tmp_path, module_tmp  # noqa: F401  (removes what tests write)
 HW, B, NBOX, N_STEPS = 64, 2, 4, 3
 LR = 1e-3
 
@@ -126,7 +127,7 @@ def _losses(jsonl) -> list:
 
 
 @pytest.fixture(scope="module")
-def trajectories(tmp_path_factory):
+def trajectories(module_tmp):
     """N_STEPS SGD steps of the detection workload in both packages from
     the same weights: JAX with matcher auction_pallas (interpret mode),
     the port with auction_kernel (its plain version on the CPU)."""
@@ -139,7 +140,7 @@ def trajectories(tmp_path_factory):
     from automoe_tpu_torch.train.loop import TrainConfig, Trainer
     from automoe_tpu_torch.train.workloads import bdd_expert_workload
 
-    tmp = tmp_path_factory.mktemp("traj")
+    tmp = module_tmp("traj")
     batches = _detection_batches()
     wl = jax_workload("detection", image_size=HW, box_cap=NBOX, matcher="auction_pallas")
     jtr = JaxTrainer(wl, batches, batches, JaxConfig(
@@ -159,7 +160,8 @@ def trajectories(tmp_path_factory):
     ptr = Trainer(bdd_expert_workload("detection", matcher="auction_kernel"),
                   batches, batches, TrainConfig(epochs=1, learning_rate=LR, weight_decay=0.0,
                                                 optimizer="sgd", run_name="p",
-                                                runs_root=str(tmp / "runs"), device="cpu"))
+                                                runs_root=str(tmp / "runs"), device="cpu",
+                                                log_every=1))
     ptr.model.load_state_dict(expert_state_dict_from_jax(init, "detection"), strict=True)
     ptr.train_epoch(0)
     ptr.logger.close()
@@ -264,10 +266,10 @@ def test_train_cli_finetune_carla_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["nuscenes", "--remat"],
+    ["nuscenes", "--spatial"],
     ["bdd", "--task", "segmentation", "--packed-root", "packed"],
-    ["bdd", "--task", "detection", "--bf16"],
-    ["finetune-carla", "--task", "detection", "--ema-decay", "0.999"],
+    ["bdd", "--task", "detection", "--multihost"],
+    ["finetune-carla", "--task", "detection", "--model-axis", "2"],
     ["preset", "carla_finetune_v5e"],
     ["policy", "--trunk-depth", "4"],
     ["gating", "--cache-expert-features"],

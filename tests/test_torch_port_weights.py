@@ -11,6 +11,7 @@ from automoe_tpu.ckpt.torch_export import export_automoe_state_dict, save_torch_
 from tests.torch_port_common import jax_model_and_variables, port_config, small_config
 
 
+from tests.torch_port_common import tmp_path  # noqa: F401  (removes what tests write)
 @pytest.fixture(scope="module")
 def jax_vars():
     return jax_model_and_variables(seed=0)[1]

@@ -6,10 +6,12 @@ the port's model on the same weights. Inputs come from numpy generators.
 from __future__ import annotations
 
 import dataclasses
+import shutil
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 # the suite runs several workers on the same cores as the JAX compiles:
@@ -18,6 +20,31 @@ torch.set_num_threads(2)
 
 B, S = 2, 64
 CAM_HW = (96, 128)
+
+
+# pytest keeps every test's folder from its last three runs, and the
+# port's tests write full-size checkpoints there: a test module imports
+# these two fixtures so that what its tests wrote goes when they end.
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's tmp_path, removed when its test ends."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+@pytest.fixture(scope="module")
+def module_tmp(tmp_path_factory):
+    """tmp_path_factory.mktemp for module-scoped fixtures; the folders it
+    made are removed when the module's tests end."""
+    made = []
+
+    def mktemp(name):
+        made.append(tmp_path_factory.mktemp(name))
+        return made[-1]
+
+    yield mktemp
+    for path in made:
+        shutil.rmtree(path, ignore_errors=True)
 
 
 def small_config():
