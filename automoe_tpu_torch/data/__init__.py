@@ -1,7 +1,7 @@
-"""Host-side data pipeline of the port (automoe_tpu/data): fixed-shape
-padded collates, the sharded sampler and threaded loader, the BDD, CARLA
-and nuScenes caches, the CARLA sequence windows and their loader
-factories."""
+"""Data pipeline of the port (automoe_tpu/data): fixed-shape padded
+collates, the sampler and threaded loader, the BDD, CARLA and nuScenes
+caches, the CARLA sequence windows, the packed caches and their native
+reader, the device-resident epoch loader and the loader factories."""
 from automoe_tpu_torch.data.factories import (  # noqa: F401
     get_bdd_detection_loader,
     get_bdd_drivable_loader,

@@ -1,12 +1,14 @@
 """Host-side data loader: shuffled sampling + threaded decode + prefetch
-(port of automoe_tpu/data/loader.py for one host: without the packed-cache
-batch read, the mesh transfer hook, custom collates and the sampler's
-multi-host sharding, which come with the multi-host slice).
+(port of automoe_tpu/data/loader.py for one host: without the mesh
+transfer hook, custom collates and the sampler's multi-host sharding,
+which come with the multi-host slice).
 
 ShardedSampler gives the JAX package's per-epoch order for a given seed
 (numpy's default_rng(seed + epoch)), so the port's Trainer sees the same
 batch sequence; DataLoader decodes samples on a thread pool and keeps
-PREFETCH collated numpy batches ready.
+PREFETCH collated numpy batches ready. A dataset with `read_batch`
+(the packed caches, data/packed.py and data/native_packed.py) is
+gathered a whole batch at a time instead: no per-sample map, no collate.
 """
 from __future__ import annotations
 
@@ -96,14 +98,20 @@ class DataLoader:
                     continue
             return False
 
+        # read at iteration time: attach_pooled_features swaps the dataset
+        read_batch = getattr(self.dataset, "read_batch", None)
+
         def produce():
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
                     for batch_idx, real in batches:
                         if stop.is_set():
                             return
-                        batch = stack_batch(list(pool.map(self.dataset.__getitem__,
-                                                          batch_idx)))
+                        if read_batch is not None:
+                            batch = read_batch(batch_idx)
+                        else:
+                            batch = stack_batch(list(pool.map(self.dataset.__getitem__,
+                                                              batch_idx)))
                         if real != len(batch_idx):
                             batch = dict(batch)
                             batch["_real_count"] = real

@@ -10,8 +10,9 @@ of the JAX package's batches, and are permuted to NCHW once, at entry.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Dict, List
+from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -24,7 +25,7 @@ from automoe_tpu_torch.models.experts import (
     BDDSegmentationExpert,
     NuScenesExpert,
 )
-from automoe_tpu_torch.models.extractors import ExpertExtractors
+from automoe_tpu_torch.models.extractors import ExpertExtractors, pool_uv_mean
 from automoe_tpu_torch.models.gating import gating_network_from_config
 from automoe_tpu_torch.models.policy import TrajectoryPolicy
 from automoe_tpu_torch.ops.resize import mean_of_resize_weights
@@ -154,7 +155,16 @@ class AutoMoE(nn.Module):
             "gate_logits": gating_output["gate_logits"],  # [B, E]
         }
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    def forward(self, batch: Dict[str, torch.Tensor], *, experts_eval: bool = False,
+                cached_pooled: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, Any]:
+        """experts_eval: the (frozen) experts run in eval mode — BatchNorm
+        on running statistics, which stay put, and the nuScenes expert's
+        dropout off — while the rest of the model keeps its own mode (the
+        standard frozen-BN variant of the reference's train-mode experts).
+        cached_pooled: per-expert pooled extractor inputs
+        (`automoe_pooled_features`, train/feature_cache.py); the expert
+        trunks are skipped and the extractor heads consume these, so
+        `expert_outputs` is empty. Equivalent to experts_eval."""
         image = batch["image"]
         if image.ndim != 4 or image.shape[-1] != 3:
             raise ValueError(f"expected NHWC image [B,H,W,3], got {tuple(image.shape)}")
@@ -163,15 +173,62 @@ class AutoMoE(nn.Module):
         context_features = self.context_extractor(
             *simple_context(batch, B, image.dtype, image.device)
         )
-        expert_outputs = [
-            expert(image, lidar_or_zeros(batch, B, image.dtype, image.device))
-            if ecfg.type == "nuscenes" and ecfg.use_lidar else expert(image)
-            for ecfg, expert in zip(self.config.experts, self.experts)
-        ]
-        features = self.extractor_features(expert_outputs, image.shape[2:])
+        if cached_pooled is not None:
+            expert_outputs = []
+            features = [ext(None, pooled=p) for ext, p in
+                        zip(self.expert_extractors.extractors, cached_pooled)]
+        else:
+            with eval_mode(self.experts) if experts_eval else contextlib.nullcontext():
+                expert_outputs = [
+                    expert(image, lidar_or_zeros(batch, B, image.dtype, image.device))
+                    if ecfg.type == "nuscenes" and ecfg.use_lidar else expert(image)
+                    for ecfg, expert in zip(self.config.experts, self.experts)
+                ]
+            features = self.extractor_features(expert_outputs, image.shape[2:])
         out = self.head_outputs(image, features, context_features)
         out["expert_outputs"] = expert_outputs
         return out
+
+
+@contextlib.contextmanager
+def eval_mode(module: nn.Module) -> Iterator[None]:
+    """`module` in eval mode for the block, its mode restored after it."""
+    was = module.training
+    module.eval()
+    try:
+        yield
+    finally:
+        module.train(was)
+
+
+@torch.no_grad()
+def automoe_pooled_features(model: AutoMoE, batch: Dict[str, torch.Tensor]
+                            ) -> List[torch.Tensor]:
+    """Eval-mode expert forward plus the extractors' parameter-free
+    pooling, without their MLPs: the per-sample quantity the frozen-expert
+    feature cache stores (train/feature_cache.py). Per expert type:
+      detection → mean over h,w of concat(class_logits, bbox_deltas)  [B, C+4]
+      seg / drv → exact mean-of-resize pool of the LOW-RES logits     [B, C]
+                  (u^T x v equals the mean of the upsampled map)
+      nuscenes  → flatten concat(class_logits, bbox_preds)            [B, Q*(C+bb)]
+    Returned as float32."""
+    image = batch["image"].permute(0, 3, 1, 2)
+    B, hw = image.shape[0], tuple(image.shape[2:])
+    pooled = []
+    with eval_mode(model.experts):
+        for ecfg, expert in zip(model.config.experts, model.experts):
+            if ecfg.type == "nuscenes":
+                out = (expert(image, lidar_or_zeros(batch, B, image.dtype, image.device))
+                       if ecfg.use_lidar else expert(image))
+                p = torch.cat([out["class_logits"], out["bbox_preds"]], -1).reshape(B, -1)
+            elif ecfg.type == "detection":
+                out = expert(image)
+                p = torch.cat([out["class_logits"], out["bbox_deltas"]], 1).mean(dim=(2, 3))
+            else:  # segmentation / drivable: pool the low-res logits, no upsample
+                low = expert.heads(expert.backbone(image))
+                p = pool_uv_mean(low, model._pool_uv(low, hw))
+            pooled.append(p.float())
+    return pooled
 
 
 @torch.no_grad()

@@ -11,10 +11,16 @@ reference's nn.Sequential: for dense maps its children 0/1 are the
 `pool_uv` (u [h], v [w]) replaces the plain pool by the exact
 mean-of-resize pool over LOW-RES logits (ops/resize.py
 mean_of_resize_weights) — the serving fast path.
+
+Every extractor splits as (parameter-free pool/flatten) → (trainable MLP
+head). `pooled=` feeds the head directly and skips the pool: the hook the
+frozen-expert feature cache uses to train gating without running the
+expert trunks (train/feature_cache.py). The parameters are the same
+either way.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -47,7 +53,10 @@ class _DenseMapExtractor(nn.Module):
     def _dense_map(self, expert_output) -> torch.Tensor:
         return expert_output
 
-    def forward(self, expert_output, *, pool_uv=None) -> torch.Tensor:
+    def forward(self, expert_output, *, pool_uv=None,
+                pooled: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if pooled is not None:  # [B,C]: the cached pool
+            return self.feature_extractor[2:](pooled)
         x = self._dense_map(expert_output)
         if pool_uv is not None:
             return self.feature_extractor[2:](pool_uv_mean(x, pool_uv))
@@ -89,11 +98,14 @@ class NuScenesExpertExtractor(nn.Module):
             *_mlp(num_queries * (num_classes + bbox_dim), output_dim, fk)
         )
 
-    def forward(self, expert_output, *, pool_uv=None) -> torch.Tensor:
-        combined = torch.cat(
-            [expert_output["class_logits"], expert_output["bbox_preds"]], dim=-1
-        )  # [B,Q,C+bbox]
-        return self.feature_extractor(combined.reshape(combined.shape[0], -1))
+    def forward(self, expert_output, *, pool_uv=None,
+                pooled: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if pooled is None:
+            combined = torch.cat(
+                [expert_output["class_logits"], expert_output["bbox_preds"]], dim=-1
+            )  # [B,Q,C+bbox]
+            pooled = combined.reshape(combined.shape[0], -1)
+        return self.feature_extractor(pooled)
 
 
 def make_extractor(expert_config, *, device=None, dtype=None) -> nn.Module:

@@ -4,8 +4,8 @@
         [--workload detection|gating|nuscenes|segmentation|drivable]
         [--batch 32|8|16] [--size 256] [--box-cap 48] [--points 8192]
         [--matcher auction_kernel] [--steps 5] [--no-tf32]
-        [--bf16] [--remat] [--qat]
-        [--data-root CACHE [--num-workers 4]]
+        [--bf16] [--remat] [--qat] [--cache-expert-features]
+        [--data-root CACHE | --packed-root PACKED] [--num-workers 4]
 
 Runs a workload's train step with seeded random weights and AdamW at the
 JAX CLI's defaults: `detection`, the ResNet-18 expert on one seeded
@@ -19,8 +19,10 @@ clouds and `--box-cap` 7-dim boxes (batch 32); `segmentation`, the
 held on the card, unless `--data-root` names a cache (segmentation: the
 `bdd-segmentation` format; drivable: `carla-segmentation`): then every
 step takes the next batch of the training CLI's loader (its factory,
-`--num-workers` worker processes, epochs reshuffled), copied to the card
-as the train loop copies it. Prints as JSON lines: the card's name and
+`--num-workers` threads, epochs reshuffled), copied to the card as the
+train loop copies it; `--packed-root` names a packed cache of the same
+data instead (`automoe-pack-torch bdd-segmentation|carla-drivable`), read
+a whole batch at a time by the native reader. Prints as JSON lines: the card's name and
 power limit, the host-clock step time (synchronised; median; with a
 loader it includes the wait for the batch), the wait for the loader's
 batch (median), the step's stream time (CUDA events around the step,
@@ -32,7 +34,9 @@ most device time. Convolutions run as PyTorch runs them by default
 (cuDNN in TF32) unless --no-tf32 is given. --bf16, --remat and --qat are
 the training CLI's step options (bf16 autocast; checkpointed ResNet-18
 blocks; int8 fake-quant), for the workloads that take them (gating: --bf16
-only).
+only). --cache-expert-features profiles the gating trainer's cached step
+(train/feature_cache.py): the batch carries its experts' pooled features,
+computed once before the timed steps, and the four trunks do not run.
 """
 from __future__ import annotations
 
@@ -66,13 +70,23 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     p.add_argument("--no-tf32", action="store_true", help="full f32 convolutions")
     p.add_argument("--data-root", default=None,
                    help="segmentation|drivable: feed the steps from the CLI's loader")
+    p.add_argument("--packed-root", default=None,
+                   help="segmentation|drivable: feed the steps from the CLI's loader over "
+                        "this packed cache (<root>/train)")
     p.add_argument("--num-workers", type=int, default=4)
     p.add_argument("--bf16", action="store_true", help="bf16 autocast forward")
     p.add_argument("--remat", action="store_true", help="checkpoint each ResNet-18 block")
     p.add_argument("--qat", action="store_true", help="int8 fake-quant of the trunk")
+    p.add_argument("--cache-expert-features", action="store_true",
+                   help="gating: the cached step (pooled expert features in the batch)")
     args = p.parse_args(argv)
-    if args.data_root and args.workload not in ("segmentation", "drivable"):
-        p.error("--data-root feeds the segmentation and drivable workloads only")
+    fed = args.data_root or args.packed_root
+    if fed and args.workload not in ("segmentation", "drivable"):
+        p.error("--data-root / --packed-root feed the segmentation and drivable workloads only")
+    if args.data_root and args.packed_root:
+        p.error("--data-root and --packed-root are exclusive")
+    if args.cache_expert_features and args.workload != "gating":
+        p.error("--cache-expert-features is the gating workload's")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -129,7 +143,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          throttle=rng.uniform(0, 1, (args.batch, H)),
                          brake=(rng.uniform(0, 1, (args.batch, H)) < 0.1) * 1.0,
                          waypoints=rng.normal(0, 5, (args.batch, H, 2)))
-            wl = gating_workload(cfg, dtype=dtype)
+            wl = gating_workload(cfg, dtype=dtype, cache_features=args.cache_expert_features)
             lr, wd = 1e-4, 1e-4
         else:
             batch.update(bboxes=np.stack(boxes), labels=np.stack(labels))
@@ -138,8 +152,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             lr, wd = 2e-4, 1e-5
     batch = {k: torch.from_numpy(v if v.dtype != np.float64 else v.astype(np.float32)).to(dev)
              for k, v in batch.items()}
-    batches = _loader_batches(args, dev) if args.data_root else None
+    batches = _loader_batches(args, dev) if fed else None
     model = wl.init_model(args.seed, dev)
+    if args.cache_expert_features:
+        from automoe_tpu_torch.models import automoe_pooled_features
+        from automoe_tpu_torch.train.feature_cache import pooled_keys
+
+        batch.update(zip(pooled_keys(len(model.experts)), automoe_pooled_features(model, batch)))
     opt = make_optimizer(model.named_parameters(), learning_rate=lr, weight_decay=wd,
                          total_steps=1000, trainable_mask=wl.trainable_mask(model))
     step = make_train_step(wl.loss_fn)
@@ -183,8 +202,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                       "steps": args.steps,
                       "cudnn_tf32": torch.backends.cudnn.allow_tf32,
                       "bf16": args.bf16, "remat": args.remat, "qat": args.qat,
-                      "data_root": args.data_root,
-                      "num_workers": args.num_workers if args.data_root else None,
+                      "cache_expert_features": args.cache_expert_features,
+                      "data_root": args.data_root, "packed_root": args.packed_root,
+                      "num_workers": args.num_workers if fed else None,
                       "host_step_ms_median": float(np.median(wall)),
                       "loader_wait_ms_median": float(np.median(waits)),
                       "step_stream_ms_median": float(np.median(streams)),
@@ -201,16 +221,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
 
 def _loader_batches(args, dev):
-    """The training CLI's loader over `args.data_root`, epoch after epoch,
-    each batch copied to the card as the train loop copies it."""
+    """The training CLI's loader over `args.data_root` (or the packed cache
+    `args.packed_root`), epoch after epoch, each batch copied to the card as
+    the train loop copies it."""
     import torch
 
     from automoe_tpu_torch.data import factories
 
     make = (factories.get_bdd_segmentation_loader if args.workload == "segmentation"
             else factories.get_carla_drivable_loader)
+    src = ({"packed_root": args.packed_root} if args.packed_root
+           else {"root_dir": args.data_root})
     loader = make("train", batch_size=args.batch, num_workers=args.num_workers,
-                  seed=args.seed, root_dir=args.data_root)
+                  seed=args.seed, **src)
     epoch = 0
     while True:
         loader.set_epoch(epoch)

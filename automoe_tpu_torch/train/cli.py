@@ -13,11 +13,14 @@ flags included (`--ckpt-root`, `--save-freq`, `--resume`, `--resume-from`,
 `--save-every-steps`, `--keep-epochs`, `--async-ckpt`, `--init-from`), and
 so are the step options (`--bf16`, `--ema-decay`, `--grad-accum`,
 `--steps-per-call`, `--max-inflight`, `--remat`, `--qat`, `--augment`,
-`--debug-nans`, `--profile-dir`). Where the JAX CLI gives an option no
-effect (--remat and --qat for policy and gating, --augment where the
-workload has none), the port says so. `--packed-root`, the mesh and
-multi-host flags, a few policy and gating flags and the `preset`
-subcommand exit with "not ported yet"; none is silently ignored. As in the JAX CLI,
+`--debug-nans`, `--profile-dir`), `--packed-root` on every subcommand
+(a cache that `automoe-pack-torch` wrote, read by the native reader) and
+gating's `--cache-expert-features`, `--feature-cache-dir` and
+`--device-resident`, with the JAX CLI's guards. Where the JAX CLI gives an
+option no effect (--remat and --qat for policy and gating, --augment where
+the workload has none), the port says so. The mesh and multi-host flags,
+a few policy and gating flags and the `preset` subcommand exit with "not
+ported yet"; none is silently ignored. As in the JAX CLI,
 segmentation and drivable take no box cap and run no matcher, and
 nuscenes-2d always matches exactly (matcher 'hungarian'), so
 `--box-cap` / `--matcher` have no effect there. `--device` (default
@@ -36,12 +39,11 @@ from automoe_tpu_torch.train.loop import TrainConfig, Trainer
 #: the JAX CLI's subcommands and flags this port does not have yet
 _NOT_PORTED_COMMANDS = ("preset",)
 _NOT_PORTED_FLAGS = (
-    "--packed-root", "--no-mesh", "--model-axis", "--spatial", "--tp-min-dim",
+    "--no-mesh", "--model-axis", "--spatial", "--tp-min-dim",
     "--multihost", "--coordinator", "--num-processes", "--process-id",
 )
 _NOT_PORTED_POLICY_FLAGS = ("--trunk-depth", "--trunk-width", "--pp-microbatches")
-_NOT_PORTED_GATING_FLAGS = ("--parallelism", "--cache-expert-features", "--device-resident",
-                            "--feature-cache-dir")
+_NOT_PORTED_GATING_FLAGS = ("--parallelism",)
 
 #: the reference trainers' schedule cadences (train/state.py::make_optimizer)
 _DEFAULT_SCHEDULE = {"policy": "constant", "gating": "cosine_per_epoch"}
@@ -63,6 +65,10 @@ def _reject(p: argparse.ArgumentParser, flags) -> None:
 
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--data-root", default=None)
+    p.add_argument("--packed-root", default=None,
+                   help="packed columnar cache root (automoe-pack-torch output; "
+                        "<root>/{train,val}), read by the native C++ batch gather instead "
+                        "of per-sample loads")
     p.add_argument("--epochs", type=int, default=1)
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--learning-rate", type=float, default=2e-4)
@@ -189,6 +195,8 @@ def _loaders(factory, args, **kw):
     common = dict(batch_size=args.batch_size, num_workers=args.num_workers, seed=args.seed)
     if args.data_root:
         common["root_dir"] = args.data_root
+    if getattr(args, "packed_root", None):
+        common["packed_root"] = args.packed_root
     train = factory(split="train", **common, **kw)
     val = factory(split="val", shuffle=False, **common, **kw)
     return train, val
@@ -200,7 +208,8 @@ def _sized_loaders(factory, args, **kw):
     hw = train.dataset[0]["image"].shape[:2]
     if hw != (args.image_size, args.image_size):
         raise SystemExit(f"--image-size {args.image_size}: the cache under "
-                         f"{args.data_root} holds {hw[0]}x{hw[1]} images")
+                         f"{getattr(args, 'packed_root', None) or args.data_root} holds "
+                         f"{hw[0]}x{hw[1]} images")
     return train, val
 
 
@@ -308,6 +317,23 @@ def cmd_policy(args):
     return _fit(wl, train, val, args, "policy")
 
 
+def _gating_guards(args) -> None:
+    """The JAX CLI's refusals for the feature cache and the resident loader."""
+    if args.cache_expert_features and args.unfreeze_experts:
+        raise SystemExit("--cache-expert-features requires frozen experts (the cache is one "
+                         "eval pass over fixed weights); drop --unfreeze-experts")
+    if args.device_resident:
+        if not args.cache_expert_features:
+            raise SystemExit("--device-resident requires --cache-expert-features (the "
+                             "resident working set = frames + pooled features + control "
+                             "targets; without the cache the expert trunks would also need "
+                             "lidar and recompute per epoch — use the host loader there)")
+        if args.grad_accum > 1:
+            raise SystemExit("--device-resident doesn't compose with --grad-accum (the "
+                             "resident loader pre-groups for steps_per_call; raise "
+                             "--batch-size instead)")
+
+
 def cmd_gating(args):
     from automoe_tpu_torch.ckpt import load_expert_checkpoints
     from automoe_tpu_torch.configs import default_model_config, load_model_config
@@ -319,8 +345,10 @@ def cmd_gating(args):
         "qat": "experts are frozen pre-trained weights here; QAT belongs to the expert "
                "trainers whose checkpoints feed this stage",
         "augment": "expert pipelines only"})
+    _gating_guards(args)
     wl = W.gating_workload(cfg, loss_config=json.loads(args.loss_config or "{}"),
-                           freeze_experts=not args.unfreeze_experts, dtype=_dtype(args))
+                           freeze_experts=not args.unfreeze_experts, dtype=_dtype(args),
+                           cache_features=args.cache_expert_features)
     train, val = _sized_loaders(get_carla_sequence_loader, args,
                                 horizon=cfg.policy.num_waypoints)
     trainer = _graft_init_from(Trainer(wl, train, val, _train_cfg(args, "gating")), args)
@@ -333,6 +361,26 @@ def cmd_gating(args):
         # the JAX CLI leaves its EMA at the random init here; the port's
         # starts at the grafted weights, so serve --ema gets the experts
         trainer.reset_ema()
+    if args.cache_expert_features:
+        # one eval pass over each split after the graft or restore (the cache
+        # must see the final frozen weights); later steps skip the trunks
+        from automoe_tpu_torch.train.feature_cache import attach_pooled_features
+
+        root = args.packed_root or args.data_root
+        attach_pooled_features(trainer.model, train, val, batch_size=args.batch_size,
+                               cache_dir=args.feature_cache_dir,
+                               cache_tags=[f"{root}:train", f"{root}:val"])
+    if args.device_resident:
+        # the cached epoch (frames included: the policy head trains its own
+        # backbone through them) staged on the card once, fed as groups of
+        # --steps-per-call batches; rebind rebuilds the schedule for the
+        # trimmed length. Validation stays on the host loader, whose padded
+        # tail keeps every val sample.
+        from automoe_tpu_torch.data.device_resident import DeviceEpochLoader
+
+        trainer.rebind_train_loader(DeviceEpochLoader.from_dataset(
+            train.dataset, batch_size=args.batch_size, group_size=max(1, args.steps_per_call),
+            seed=args.seed, device=trainer.device))
     return trainer.fit(_args_dump(args))
 
 
@@ -392,6 +440,18 @@ def main(argv=None):
                     help="comma-separated checkpoint files, one per expert ('' skips one)")
     pg.add_argument("--loss-config", default=None, help="JSON string")
     pg.add_argument("--unfreeze-experts", action="store_true")
+    pg.add_argument("--cache-expert-features", action="store_true",
+                    help="precompute the frozen experts' pooled gating features in one eval "
+                         "pass, then train without running the expert trunks (frozen-BN "
+                         "semantics: train/feature_cache.py)")
+    pg.add_argument("--device-resident", action="store_true",
+                    help="stage the cached epoch on the card once and train from "
+                         "pre-grouped device batches (no per-step host-to-device copy; "
+                         "needs --cache-expert-features; best with --steps-per-call K)")
+    pg.add_argument("--feature-cache-dir", default=None,
+                    help="keep the pooled-feature cache here (keyed by the frozen expert "
+                         "weights and the dataset); a re-run loads it instead of running "
+                         "the eval pass again")
     _reject(pg, _NOT_PORTED_GATING_FLAGS)
     _add_common(pg)
     pg.set_defaults(fn=cmd_gating, epochs=100, batch_size=8, learning_rate=1e-4,

@@ -19,7 +19,11 @@ Stepping modes, as in the JAX Trainer:
     averaged gradients (make_grad_accum_train_step). The schedule then
     counts optimizer steps: len(loader) // K + len(loader) % K an epoch.
 The two are exclusive. A tail of fewer than K batches runs as single
-steps.
+steps. A loader whose `group_size` equals K (the device-resident loader,
+data/device_resident.py) yields its [K, B, ...] groups already stacked on
+the card: each goes straight into the K-step call, and tensors already on
+the card take no pinned copy. `rebind_train_loader` swaps in such a loader
+after construction and rebuilds the schedule for its length.
 
 The host never waits for a step it has just launched: at most
 `max_inflight` losses stay unread on the device (0 reads every step's
@@ -160,7 +164,8 @@ class Trainer:
         out = {}
         for k, v in arrays.items():
             t = torch.as_tensor(v)
-            if self.device.type == "cuda":
+            # a resident loader's tensors are on the card already (one device)
+            if t.device.type != self.device.type:
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out[k] = t
         return out
@@ -244,6 +249,8 @@ class Trainer:
                                   if s and epoch == self.start_epoch else 0)
         consumed0, skip_in_loop = self._set_epoch_with_skip(epoch)
         k, step_fn, steps = self._mode()
+        # a loader that yields K-batch groups already stacked (and placed)
+        pre_grouped = k > 1 and getattr(self.train_loader, "group_size", 1) == k
         self._loss_sum, self._loss_n = 0.0, 0
         t0 = time.time()
         anomaly = (torch.autograd.detect_anomaly(check_nan=True) if self.cfg.debug_nans
@@ -255,6 +262,10 @@ class Trainer:
                 if i < skip_in_loop:
                     continue
                 last_i = i
+                if pre_grouped:
+                    self._dispatch(step_fn, self._device_batch(batch), steps)
+                    self._maybe_save_step(epoch, consumed0 + (i + 1) * k)
+                    continue
                 group.append(batch)
                 if len(group) < k:
                     continue
@@ -275,6 +286,19 @@ class Trainer:
                                                "steps_per_sec": n / max(dt, 1e-9)},
                         prefix="train")
         return avg
+
+    def rebind_train_loader(self, loader) -> None:
+        """Swap the training loader after construction (the
+        --device-resident path builds its loader after the feature cache,
+        which needs this Trainer's grafted or restored weights). Where the
+        new loader's length differs (the resident loader trims N to a
+        multiple of batch·group), the schedule set from the old length
+        would decay over steps that never run: it is rebuilt for the
+        new one. The optimizer's step count, moments and EMA stay."""
+        self.train_loader = loader
+        bpe = _optimizer_steps_per_epoch(len(loader), self.cfg.grad_accum)
+        self.optimizer.steps_per_epoch = bpe
+        self.optimizer.total_steps = max(self.cfg.epochs * bpe, 1)
 
     def validate(self, epoch: int, *, use_ema: bool = False, prefix: str = "val") -> float:
         """Validation epoch: loss and every scalar metric averaged over

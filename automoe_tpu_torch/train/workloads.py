@@ -316,20 +316,36 @@ def pooled_feature_dim(ecfg) -> int:
 
 
 def gating_workload(model_config: Any, *, loss_config: Optional[Mapping] = None,
-                    freeze_experts: bool = True,
-                    dtype: torch.dtype = torch.float32) -> Workload:
+                    freeze_experts: bool = True, dtype: torch.dtype = torch.float32,
+                    cache_features: bool = False, experts_eval: bool = False) -> Workload:
     """Gating training over the full AutoMoE (the reference's
     train_gating_network.py): the experts are frozen (no gradient, no
     update) while the extractors, context encoder, gating network and
     policy head train. As in the JAX package's default, the frozen
     experts still run in train mode: their BatchNorm normalises with batch
-    statistics and its running statistics move, and their dropout is live."""
+    statistics and its running statistics move, and their dropout is live.
+
+    experts_eval: the frozen experts run in eval mode instead (frozen BN,
+    no dropout; `AutoMoE.forward`). cache_features: the expert trunks do
+    not run at all; batches carry the cached `expert_pooled_{i}` features
+    (train/feature_cache.py::PooledFeatureDataset), which is exactly the
+    experts_eval step. The experts' modules stay in the model either way,
+    so their weights and statistics stay in the state dict untouched."""
+    from automoe_tpu_torch.train.feature_cache import pooled_keys
+
     cfg: AutoMoEConfig = load_model_config(model_config)
     lcfg = dict(loss_config or {})
+    names = pooled_keys(len(cfg.experts))
 
     def loss_fn(model, batch, train, key=None):
+        kw: Dict[str, Any] = {}
+        if cache_features:
+            kw["cached_pooled"] = [batch[k] for k in names]
+            batch = {k: v for k, v in batch.items() if k not in names}
+        elif experts_eval:
+            kw["experts_eval"] = True
         with autocast(batch["image"].device, dtype):
-            out = _float(model(batch))
+            out = _float(model(batch, **kw))
         res = gating_losses(out, batch["waypoints"], batch["speed"], lcfg)
         return res["total_loss"], {k: v for k, v in res.items() if k != "total_loss"}
 

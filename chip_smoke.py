@@ -5,7 +5,9 @@
 
 Phases, each of which must pass (none is caught):
   1. build the CUDA kernels from automoe_tpu_torch/csrc, one nvcc per
-     source, all started together (stem.cu timed here, auction.cu in 8);
+     source, and the packed caches' host reader (packed_reader.cpp, g++),
+     all started together (stem.cu timed here, auction.cu in 8, the
+     reader in 15);
   2. K3, the fused int8 stem kernel, against its plain PyTorch version
      at B=8 and B=128, 256x256 input: int8 outputs within ±1 on at most
      0.1% of elements, with inv > 0 and with inv of both signs; the
@@ -106,7 +108,27 @@ Phases, each of which must pass (none is caught):
      --ema-decay 0.999`, its EMA of the grafted expert equal to the
      expert (rtol 1e-6), then `automoe-serve-torch --checkpoint <gating
      best> --ema --quantize` answers 4 TCP requests, K3 once per server
-     batch.
+     batch;
+ 15. the fast data paths: (a) the native reader's `read_batch` equals the
+     python memmap reader's byte for byte on a packed 256x256 CARLA
+     detection cache (each one's host time for 32 frames); (d) one SGD
+     step of the cached gating workload equals the experts_eval step from
+     the same weights and key (default config, 256x256, B=8, TF32 off;
+     loss rtol 1e-5, trained parameters rtol 1e-3 / atol 1e-4, experts
+     bit-equal to the start); then at PyTorch's default precision: (b)
+     `automoe-pack-torch bdd-detection` packs a 256x256 BDD cache (64
+     train, 32 val) and `bdd --task detection` (batch 32, box cap 48) runs
+     2 epochs from its PNG frames and 2 from the packed cache: K1 once per
+     train and val step in each, finite losses, each one's stream time a
+     step; (c) `automoe-pack-torch carla-sequences` (256 train windows)
+     and `gating --packed-root --expert-ckpts <phase 12's detection
+     best>,,, --cache-expert-features --feature-cache-dir D
+     --device-resident --steps-per-call 4 --batch-size 32` for 2 epochs
+     (each split's features computed once), then again for 1 epoch (the
+     cache loaded from D, nothing computed), each call's stream time
+     beside phase 12's plain gating step; (e) `automoe-serve-torch
+     --checkpoint <(c)'s best> --quantize` answers 4 TCP requests, K3 once
+     per server batch.
 
 Prints the card's name and power limit, one JSON line of kernel results,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a CUDA
@@ -845,6 +867,197 @@ def phase_step_options(tmp: Path, frames, speeds):
     return out
 
 
+def phase_packed_reader(tmp: Path):
+    """15a: the native reader (built in phase 1) against the python memmap
+    reader on a packed 256x256 CARLA detection cache, byte for byte, and
+    each one's host time for a batch of 32."""
+    from automoe_tpu_torch.data.native_packed import NativePackedDataset
+    from automoe_tpu_torch.data.packed import PackedFrameDataset, pack_frames
+    from automoe_tpu_torch.data.datasets import CarlaDetectionDataset
+    from automoe_tpu_torch.tools.synth import synth_carla_detection
+
+    root = synth_carla_detection(tmp / "det", n_per_split={"train": 64}, size=256,
+                                 max_boxes=20, seed=SEED)
+    n = pack_frames(CarlaDetectionDataset(root / "train", box_cap=48), tmp / "packed")
+    native, python = NativePackedDataset(tmp / "packed"), PackedFrameDataset(tmp / "packed")
+    idx = np.random.default_rng(SEED).permutation(n)[:32]
+    a, b = native.read_batch(idx), python.read_batch(idx)
+    assert sorted(a) == sorted(b) == ["bboxes", "image", "labels"], sorted(a)
+    for k in a:
+        assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes(), k
+
+    def host_ms(fn, iters=10):
+        t = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn(idx)
+            t.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(t))
+
+    out = dict(samples=n, batch=32, fields=sorted(a), image_row_dtype=str(
+        np.load(tmp / "packed" / "image.npy", mmap_mode="r").dtype),
+               native_read_ms=host_ms(native.read_batch),
+               python_read_ms=host_ms(python.read_batch))
+    print(f"phase 15a packed reader: {out}", flush=True)
+    return out
+
+
+def phase_fast_data(tmp: Path, det_best: Path, gating_plain: dict, frames, speeds):
+    """15b-e: the packed caches and the cached, device-resident gating
+    trainer through the entry points at full width."""
+    import torch
+
+    from automoe_tpu_torch.ckpt import load_checkpoint
+    from automoe_tpu_torch.data.pack_cli import main as pack_main
+    from automoe_tpu_torch.tools.synth import synth_bdd_detection, synth_carla_sequence
+    from automoe_tpu_torch.train import feature_cache
+    from automoe_tpu_torch.train.cli import main as train_main
+
+    out = {}
+    runs, ck = tmp / "runs", tmp / "ck"
+    common = ["--image-size", "256", "--runs-root", str(runs), "--ckpt-root", str(ck)]
+    # (b) bdd detection from PNG frames, then from their packed cache
+    bdd = synth_bdd_detection(tmp / "bdd", n_per_split={"train": 64, "val": 32}, size=256,
+                              max_boxes=20, seed=SEED)
+    t0 = time.perf_counter()
+    counts = pack_main(["bdd-detection", "--root", str(bdd), "--out", str(tmp / "bdd-packed"),
+                        "--box-cap", "48"])
+    pack_s = time.perf_counter() - t0
+    det = ["bdd", "--task", "detection", "--box-cap", "48", "--batch-size", "32",
+           "--epochs", "2", *common]
+    b = {}
+    for name, src in (("data-root", ["--data-root", str(bdd)]),
+                      ("packed-root", ["--packed-root", str(tmp / "bdd-packed")])):
+        res, launches, peak, recs = train_cli_run(det + src + ["--run-name", name],
+                                                  runs / f"bdd_detection_{name}")
+        assert launches == 2 * (64 // 32 + 32 // 32), (name, launches)
+        losses = [r["train/loss_epoch"] for r in recs if "train/loss_epoch" in r]
+        vals = [r["val/loss"] for r in recs if "val/loss" in r]
+        assert len(losses) == len(vals) == 2 and np.isfinite(losses + vals).all(), (name, recs)
+        b[name] = dict(k1_launches=launches, train_loss_epoch=losses, val_loss=vals,
+                       step_ms_p50=res["step_ms_p50"], step_ms_mean=res["step_ms_mean"],
+                       timed_steps=res["timed_steps"], peak_memory_bytes=peak)
+    out["b"] = dict(pack_seconds=pack_s, packed=counts, **b)
+    print(f"phase 15b bdd detection, PNG frames vs packed cache: {out['b']}", flush=True)
+
+    # (c) cached, device-resident gating on a packed sequence cache; then again,
+    # the cache loaded from --feature-cache-dir
+    # 2 runs of 138 frames: 256 train windows (horizon 10), 2 groups of 4
+    # steps of 32 an epoch
+    seq = synth_carla_sequence(tmp / "seq", n_per_split={"train": 276, "val": 26}, runs=2,
+                               size=256, seed=SEED)
+    windows = pack_main(["carla-sequences", "--root", str(seq), "--out",
+                         str(tmp / "seq-packed"), "--horizon", "10"])
+    computed = []
+    precompute = feature_cache.precompute_pooled_features
+
+    def counted(*a, **k):
+        computed.append(len(a[1]))
+        return precompute(*a, **k)
+
+    feature_cache.precompute_pooled_features = counted
+    try:
+        gating = ["gating", "--packed-root", str(tmp / "seq-packed"), "--expert-ckpts",
+                  f"{det_best},,,", "--cache-expert-features", "--feature-cache-dir",
+                  str(tmp / "fc"), "--device-resident", "--steps-per-call", "4",
+                  "--batch-size", "32", *common]
+        c = {}
+        for name, epochs in (("first", "2"), ("again", "1")):
+            computed.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = train_main(gating + ["--epochs", epochs, "--run-name", name])
+            wall = time.perf_counter() - t0
+            losses, vals = metrics_of(runs / f"gating_{name}")
+            assert len(losses) == len(vals) == int(epochs), (name, losses, vals)
+            assert np.isfinite(losses + vals).all(), (name, losses, vals)
+            c[name] = dict(precomputed_samples=list(computed), train_loss_epoch=losses,
+                           val_loss=vals, call_ms_p50=res["step_ms_p50"],
+                           call_ms_mean=res["step_ms_mean"], timed_calls=res["timed_steps"],
+                           samples_per_s=4 * 32 * 1e3 / res["step_ms_p50"],
+                           run_seconds=wall,
+                           peak_memory_bytes=int(torch.cuda.max_memory_allocated()))
+        # each split's windows, cached once
+        assert c["first"]["precomputed_samples"] == [windows["train"], windows["val"]], c
+        assert windows["train"] == 256, windows
+        assert c["again"]["precomputed_samples"] == [], "the cache was not loaded from disk"
+    finally:
+        feature_cache.precompute_pooled_features = precompute
+    out["c"] = dict(c, plain_gating_step_ms_p50_phase12=gating_plain["step_ms_p50"],
+                    plain_gating_batch_phase12=gating_plain["batch"])
+    print(f"phase 15c cached device-resident gating: {out['c']}", flush=True)
+
+    # (e) the cache-trained gating checkpoint served int8
+    best = ck / "gating" / "first" / "best.pt"
+    assert any(k.startswith("experts.3.") for k in load_checkpoint(best)["model_state_dict"])
+    n_batches, k3 = serve_four(["--checkpoint", str(best), "--quantize"], frames, speeds)
+    out["e"] = dict(serve_batches=n_batches, k3_launches=k3)
+    print(f"phase 15e int8 serving of the cached gating checkpoint: {out['e']}", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cached_step_equals_experts_eval():
+    """15d: on the card, one step of the cached gating workload equals the
+    experts_eval step from the same weights and key, at the default
+    4-expert config, 256x256, B=8, TF32 off: loss rtol 1e-5, trained
+    parameters rtol 1e-3 / atol 1e-4 (the tolerances of the JAX package's
+    tests/test_feature_cache.py), the experts' parameters and statistics
+    bit-equal to the start in both. The step is SGD at lr 1e-2: the policy
+    backbone's conv biases feed train-mode BatchNorm, so their true
+    gradient is 0 and each path holds ~1e-8 of rounding noise there, which
+    AdamW's first step turns into ±lr moves of either sign (on an H100 the
+    two paths' noise differs: those biases end 2.6e-4 apart after one AdamW
+    step at lr 1e-3)."""
+    import torch
+
+    from automoe_tpu_torch.configs import default_model_config
+    from automoe_tpu_torch.models import automoe_pooled_features
+    from automoe_tpu_torch.train.feature_cache import pooled_keys
+    from automoe_tpu_torch.train.state import make_optimizer
+    from automoe_tpu_torch.train.step import make_train_step
+    from automoe_tpu_torch.train.workloads import gating_workload
+
+    cfg = default_model_config()
+    H = cfg.policy.num_waypoints
+    rng = np.random.default_rng(SEED + 15)
+    batch = {"image": rng.normal(size=(8, 256, 256, 3)), "speed": rng.uniform(0, 40, (8, H)),
+             "steering": rng.normal(0, 0.2, (8, H)), "throttle": rng.uniform(0, 1, (8, H)),
+             "brake": (rng.uniform(0, 1, (8, H)) < 0.1) * 1.0,
+             "waypoints": rng.normal(0, 5, (8, H, 2))}
+    batch = {k: torch.from_numpy(v.astype(np.float32)).cuda() for k, v in batch.items()}
+    runs = {}
+    for name, kw in (("experts_eval", dict(experts_eval=True)),
+                     ("cached", dict(cache_features=True))):
+        wl = gating_workload(cfg, **kw)
+        model = wl.init_model(SEED, torch.device("cuda"))
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        b = dict(batch)
+        if name == "cached":
+            b.update(zip(pooled_keys(len(cfg.experts)), automoe_pooled_features(model, b)))
+        opt = make_optimizer(model.named_parameters(), learning_rate=1e-2, weight_decay=0.0,
+                             total_steps=10, optimizer="sgd",
+                             trainable_mask=wl.trainable_mask(model))
+        loss = float(make_train_step(wl.loss_fn)(model, opt, b, (SEED + 1, 0))["loss"])
+        runs[name] = (loss, model.state_dict(), start)
+    (l_ee, sd_ee, start), (l_c, sd_c, _) = runs["experts_eval"], runs["cached"]
+    np.testing.assert_allclose(l_c, l_ee, rtol=1e-5)
+    worst, frozen = 0.0, 0
+    for k, v in sd_c.items():
+        if k.startswith("experts."):
+            assert torch.equal(v, start[k]) and torch.equal(sd_ee[k], start[k]), k
+            frozen += 1
+        elif v.is_floating_point():
+            np.testing.assert_allclose(v.cpu().numpy(), sd_ee[k].cpu().numpy(), rtol=1e-3,
+                                       atol=1e-4, err_msg=k)
+            worst = max(worst, float((v - sd_ee[k]).abs().max()))
+    out = dict(loss_experts_eval=l_ee, loss_cached=l_c, max_trained_abs_diff=worst,
+               frozen_tensors_bit_equal=frozen)
+    print(f"phase 15d cached step vs experts_eval step: {out}", flush=True)
+    return out
+
+
 def rel_err(a, b) -> float:
     a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
     return float(np.abs(a - b).mean() / (np.abs(a).mean() + 1e-12))
@@ -877,6 +1090,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from automoe_tpu_torch.configs import default_model_config
+    from automoe_tpu_torch.data import native_packed
     from automoe_tpu_torch.infer import InferenceEngine
     from automoe_tpu_torch.ops import auction_kernel, stem
     from automoe_tpu_torch.tools.bench_auction import auction_regimes, nuscenes_regimes
@@ -895,12 +1109,14 @@ def main() -> int:
     # 1. build: both sources start compiling now, each with its own nvcc
     t_build = time.perf_counter()
 
-    def timed_auction_build():
-        auction_kernel.build()
+    def timed_build(build):
+        build()
         return time.perf_counter() - t_build
 
-    pool = ThreadPoolExecutor(max_workers=1)
-    auction_build = pool.submit(timed_auction_build)
+    pool = ThreadPoolExecutor(max_workers=2)
+    auction_build = pool.submit(timed_build, auction_kernel.build)
+    # the packed caches' host reader (g++), used from phase 15
+    reader_build = pool.submit(timed_build, native_packed.load_library)
     pool.shutdown(wait=False)
     stem.build()
     print(f"build: {time.perf_counter() - t_build:.1f} s", flush=True)
@@ -972,9 +1188,10 @@ def main() -> int:
         train_cli = phase_train_cli(Path(tmp))
     launches["auction_solve"] = train_cli["finetune-carla"]["launches"]
 
-    # 12. detection → resume → gating → policy → int8 serving
-    with tempfile.TemporaryDirectory() as tmp:
-        pipeline = phase_pipeline(Path(tmp), frames, speeds)
+    # 12. detection → resume → gating → policy → int8 serving; its detection
+    # checkpoint feeds phase 15's gating run
+    tmp12 = tempfile.TemporaryDirectory()
+    pipeline = phase_pipeline(Path(tmp12.name), frames, speeds)
 
     # 13. the other experts: K1+K2 at the nuScenes shapes; two nuScenes steps, card
     # against CPU (TF32 off); then, at the default precision, the nuScenes,
@@ -996,6 +1213,21 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
     with tempfile.TemporaryDirectory() as tmp:
         options = phase_step_options(Path(tmp), frames, speeds)
+
+    # 15. the fast data paths: the native reader, packed caches through the
+    # trainers, the cached device-resident gating trainer, its checkpoint served
+    reader_build_s = reader_build.result()
+    print(f"build packed_reader.cpp: {reader_build_s:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        fast = {"build_seconds": reader_build_s, "a": phase_packed_reader(Path(tmp))}
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    fast["d"] = phase_cached_step_equals_experts_eval()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+    with tempfile.TemporaryDirectory() as tmp:
+        fast.update(phase_fast_data(
+            Path(tmp), Path(tmp12.name) / "ckpt" / "bdd_detection" / "det" / "best.pt",
+            pipeline["gating"], frames, speeds))
+    tmp12.cleanup()
 
     src = "automoe_tpu_torch/csrc/stem.cu"
     main_, big = k3[B_MAIN], k3[128]
@@ -1021,7 +1253,9 @@ def main() -> int:
                              "serve a LiDAR nuScenes config (phase 13)":
                                  other["serve_lidar_int8"]["k3_launches"],
                              "serve the gating checkpoint's EMA, --ema --quantize (phase 14e)":
-                                 options["e"]["k3_launches"]},
+                                 options["e"]["k3_launches"],
+                             "serve the cached, device-resident gating checkpoint (phase 15e)":
+                                 fast["e"]["k3_launches"]},
         "b128": {k: big[k] for k in ("ms", "ms_blocks", "wrapper_ms", "plain_ms", "unfused_ms",
                                      "bound_ms", "max_abs_err", "diff_frac",
                                      "mixed_sign_inv_max_abs_err",
@@ -1066,7 +1300,11 @@ def main() -> int:
             "bdd --bf16 --augment --qat --remat --ema-decay --grad-accum 2 (phase 14b)":
                 options["b"]["kernel_launches"],
             "finetune-carla --steps-per-call 4 (phase 14c)":
-                options["c"]["kernel_launches"]},
+                options["c"]["kernel_launches"],
+            "bdd --packed-root, 2 epochs (phase 15b)":
+                fast["b"]["packed-root"]["k1_launches"],
+            "bdd --data-root, the same 2 epochs (phase 15b)":
+                fast["b"]["data-root"]["k1_launches"]},
         **{name: {k: v[name][k] for k in ("shape", "ms", "ms_blocks", "wrapper_ms", "plain_ms",
                                           "bound_ms", "bound_by", "max_abs_err",
                                           "scipy_cost_gap", "scipy_cost_gap_rel",
@@ -1082,6 +1320,7 @@ def main() -> int:
     print(json.dumps({"other_experts": {"nuscenes_step_cuda_vs_cpu": nus_step, **other}}),
           flush=True)
     print(json.dumps({"step_options": {"card_vs_cpu": options_step, **options}}), flush=True)
+    print(json.dumps({"fast_data": fast}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -506,3 +506,100 @@ def test_seg_and_2d_train_cli_on_cuda(gen, tmp_path, cmd):
     # 2 train steps + 2 val steps (the second a padded tail)
     assert ak.LAUNCHES["auction_solve"] - n == (4 if cmd[0] == "nuscenes-2d" else 0)
     assert np.isfinite(res["best_val_loss"]) and res["device_timed"] == 1.0
+
+
+class _TinyNet(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.conv = torch.nn.Conv2d(3, 4, 3, padding=1)
+        self.bn = torch.nn.BatchNorm2d(4)
+        self.fc = torch.nn.Linear(4, 3)
+
+    def forward(self, x):
+        return self.fc(torch.relu(self.bn(self.conv(x))).mean(dim=(2, 3)))
+
+
+def _tiny_loss(model, batch, train, key=None):
+    logits = model(batch["image"].permute(0, 3, 1, 2))
+    return torch.nn.functional.cross_entropy(logits, batch["label"]), {}
+
+
+def test_resident_groups_are_cuda_tensors_without_pinned_copies(gen, tmp_path, monkeypatch):
+    """The device-resident loader yields [K,B,...] groups on the card, and
+    the Trainer's pre-grouped path hands them to its K-step call as they
+    are: no pinned host copy, no transfer."""
+    from automoe_tpu_torch.data.device_resident import DeviceEpochLoader
+    from automoe_tpu_torch.train.loop import TrainConfig, Trainer
+    from automoe_tpu_torch.train.workloads import Workload
+
+    rng = np.random.default_rng(0)
+    arrays = {"image": rng.normal(size=(24, 8, 8, 3)).astype(np.float32),
+              "label": rng.integers(0, 3, 24)}
+    loader = DeviceEpochLoader(arrays, batch_size=4, group_size=3, seed=1)
+    groups = list(loader)
+    assert len(groups) == 2 and len(loader) == 6
+    assert all(v.is_cuda and v.shape[:2] == (3, 4) for g in groups for v in g.values())
+    trainer = Trainer(Workload("tiny", _TinyNet, _tiny_loss), loader,
+                      [{k: v[:4] for k, v in arrays.items()}],
+                      TrainConfig(epochs=1, steps_per_call=3, ckpt_root=str(tmp_path / "ck"),
+                                  runs_root=str(tmp_path / "runs")))
+    placed = trainer._device_batch(groups[0])
+    assert all(placed[k].data_ptr() == groups[0][k].data_ptr() for k in placed)
+
+    def no_pin(self, *a, **k):
+        raise AssertionError("a resident batch took a pinned copy")
+
+    monkeypatch.setattr(torch.Tensor, "pin_memory", no_pin)
+    loss = trainer.train_epoch(0)
+    assert np.isfinite(loss) and trainer.optimizer.count == 6
+
+
+def test_cached_gating_step_on_cuda_matches_cpu(gen):
+    """The cached gating step (pooled features computed on each device from
+    the same weights) on the card against the CPU, TF32 off, dropout off,
+    two SGD steps: loss rtol 1e-4, parameters rtol 1e-3 / atol 1e-5; the experts untouched."""
+    from automoe_tpu_torch.models import automoe_pooled_features
+    from automoe_tpu_torch.train.feature_cache import pooled_keys
+    from automoe_tpu_torch.train.state import make_optimizer
+    from automoe_tpu_torch.train.step import make_train_step
+    from automoe_tpu_torch.train.workloads import gating_workload
+
+    cfg = {"experts": [{"type": "detection", "num_classes": 10},
+                       {"type": "segmentation", "num_classes": 19},
+                       {"type": "drivable", "num_classes": 3},
+                       {"type": "nuscenes", "num_queries": 8, "bbox_dim": 4, "fusion": "sum",
+                        "use_lidar": False}],
+           "policy": {"num_waypoints": 4}}
+    rng = np.random.default_rng(3)
+    batch = {"image": rng.normal(size=(4, 64, 64, 3)).astype(np.float32),
+             "speed": rng.uniform(0, 30, (4, 4)).astype(np.float32),
+             "steering": rng.normal(0, 0.2, (4, 4)).astype(np.float32),
+             "throttle": rng.uniform(0, 1, (4, 4)).astype(np.float32),
+             "brake": np.zeros((4, 4), np.float32),
+             "waypoints": rng.normal(0, 3, (4, 4, 2)).astype(np.float32)}
+    wl = gating_workload(cfg, cache_features=True)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = wl.init_model(0, torch.device(dev))
+        for m in model.modules():  # the card's and the CPU's dropout masks differ
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        start = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        b.update(zip(pooled_keys(4), automoe_pooled_features(model, b)))
+        # SGD: AdamW would turn the ~1e-8 noise gradients of the conv biases
+        # ahead of BatchNorm into ±lr steps of either sign
+        opt = make_optimizer(model.named_parameters(), learning_rate=1e-2, weight_decay=0.0,
+                             total_steps=4, optimizer="sgd",
+                             trainable_mask=wl.trainable_mask(model))
+        step = make_train_step(wl.loss_fn)
+        losses = [float(step(model, opt, b, (1, i))["loss"]) for i in range(2)]
+        runs[dev] = (losses, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                     start)
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    for k, v in runs["cpu"][1].items():
+        if k.startswith("experts."):
+            assert torch.equal(runs["cuda"][1][k], runs["cuda"][2][k]), k
+        elif v.is_floating_point():
+            np.testing.assert_allclose(runs["cuda"][1][k].numpy(), v.numpy(), rtol=1e-3,
+                                       atol=1e-5, err_msg=k)

@@ -267,12 +267,12 @@ def test_train_cli_finetune_carla_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["nuscenes", "--spatial"],
-    ["bdd", "--task", "segmentation", "--packed-root", "packed"],
+    ["bdd", "--task", "segmentation", "--tp-min-dim", "1"],
     ["bdd", "--task", "detection", "--multihost"],
     ["finetune-carla", "--task", "detection", "--model-axis", "2"],
     ["preset", "carla_finetune_v5e"],
     ["policy", "--trunk-depth", "4"],
-    ["gating", "--cache-expert-features"],
+    ["gating", "--cache-expert-features", "--no-mesh"],
     ["gating", "--parallelism", "ep"],
 ], ids=["subcommand", "task", "flag", "flag-with-value", "preset", "policy-deep-trunk",
         "gating-feature-cache", "gating-ep"])
