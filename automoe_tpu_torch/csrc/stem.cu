@@ -80,6 +80,27 @@
 //     reads with the other warpgroup's B reads (both compete for the
 //     SM's 128 bytes per clock).
 //
+// K3 at float32, automoe_stem_s2d_pool_int8_f32: the same function for an
+//     f32 xs [B,Hc+4,Wc+4,12] and w [192,O] (O % 64 == 0), the
+//     instantiation the JAX kernel takes for an f32 input (pallas_stem.py
+//     casts w to xs's dtype and sizes its patch buffer in it). The int8
+//     engine and the eval CLI's `gating --quantize` run it at f32.
+//     Products accumulate in f32 with FFMA on the CUDA cores: TF32 tensor
+//     cores would round the inputs to 10 mantissa bits, which the f32
+//     reference does not. Bound: 1.61 GFLOP per 256x256 image (O = 256)
+//     over the 67 TFLOP/s of f32 outside the tensor cores, 0.19 ms at
+//     B=8 and 0.77 ms at B=32; the bytes (1.9 MB an image) take a
+//     fortieth of that. Design, simple first: a block per 64-channel
+//     group keeps the group's 192 x 64 weights (48 KB) in shared memory
+//     and walks (image, 4x8 pooled tile) items; per item it stages the
+//     12x20-pixel f32 patch, computes the tile's 9x17 conv positions in
+//     rounds of 64 (a thread: 4 positions x 4 channels, the weights read
+//     as float4, so 16 FFMA per 5 shared loads), writes bias + ReLU to an
+//     f32 tile in shared memory, and pools and quantizes from there in the
+//     plain version's order (pool the f32 values, then quantize). Two
+//     blocks an SM (99,840 bytes each). Not yet: a register-blocked
+//     product with more positions a thread, a cp.async double buffer.
+//
 // K4  automoe_maxpool3x3s2_int8 replaces automoe_tpu/ops/pallas_stem.py
 //     _pool_kernel (launched by maxpool3x3s2_int8): 3x3/s2 SAME max-pool
 //     of an int8 NHWC tensor (out-of-range taps skipped, which is the
@@ -544,6 +565,145 @@ __global__ void maxpool3x3s2_int8_kernel(const int8_t* __restrict__ x,
   *reinterpret_cast<uint4*>(out + (((size_t)b * Ho + p) * Wo + q) * C + g * 16) = m;
 }
 
+// ---------------------------------------------------------------------------
+// K3 at float32 (automoe_stem_s2d_pool_int8_f32): FFMA on the CUDA cores.
+// ---------------------------------------------------------------------------
+
+constexpr int F_TP = 4, F_TQ = 8;                          // pooled tile, rows x cols
+constexpr int F_CR = 2 * F_TP + 1, F_CC = 2 * F_TQ + 1;    // its conv positions, 9 x 17
+constexpr int F_NPOS = F_CR * F_CC;                        // 153
+constexpr int F_PR = F_CR + 3, F_PC = F_CC + 3;            // input patch pixels, 12 x 20
+constexpr int F_OG = 64;                                   // channels per block
+constexpr int F_QUADS = F_OG / 4;                          // 16 channel quads
+constexpr int F_THREADS = 256;
+constexpr int F_LANES = F_THREADS / F_QUADS;               // 16 position lanes
+constexpr int F_PPT = 4;                                   // positions per thread per round
+constexpr int F_ROUND = F_LANES * F_PPT;                   // 64 positions per round
+constexpr int F_W_FLOATS = 192 * F_OG;                     // 49,152 bytes
+constexpr int F_P_FLOATS = F_PR * F_PC * 12;               // 11,520 bytes
+constexpr int F_C_FLOATS = F_NPOS * F_OG;                  // 39,168 bytes
+constexpr int F_SMEM = (F_W_FLOATS + F_P_FLOATS + F_C_FLOATS) * 4;  // 99,840: two blocks an SM
+static_assert(2 * (F_SMEM + 1024) <= 233472, "two blocks must fit an SM's shared memory");
+
+__device__ __forceinline__ signed char quant_f32(float v) {
+  return static_cast<signed char>(fminf(fmaxf(rintf(v), -127.0f), 127.0f));
+}
+
+// One block: one channel group of 64 (blockIdx.y) and, in a stride loop,
+// (image, 4x8 pooled tile) items. The group's weights stay in shared
+// memory for the block's life; per item the 12x20x12 input patch is
+// staged, the 153 conv positions are computed in rounds of 64 (thread:
+// 4 positions x 4 channels, 16 accumulators, k in w's row order
+// a*48 + b*12 + c), bias + ReLU go to an f32 tile in shared memory, and
+// the 3x3/s2 max of in-window conv positions is quantized, as the plain
+// version does it: clip(rint(max * inv), +-127), for any sign of inv.
+__global__ void __launch_bounds__(F_THREADS, 2)
+s2d_stem_pool_int8_f32_kernel(const float* __restrict__ xs, const float* __restrict__ w,
+                              const float* __restrict__ bias,
+                              const float* __restrict__ inv, int8_t* __restrict__ out,
+                              int B, int Hp, int Wp, int O, int Ho, int Wo, int tiles_w,
+                              long long items) {
+  extern __shared__ float4 smem_f32[];
+  float* Ws = reinterpret_cast<float*>(smem_f32);
+  float* Ps = Ws + F_W_FLOATS;
+  float* Cs = Ps + F_P_FLOATS;
+  const int tid = threadIdx.x;
+  const int quad = tid % F_QUADS, lane = tid / F_QUADS;
+  const int o0 = blockIdx.y * F_OG;
+  const int Hc = Hp - 4, Wc = Wp - 4;
+  for (int i = tid; i < F_W_FLOATS / 4; i += F_THREADS) {
+    const int k = i / F_QUADS, c4 = i % F_QUADS;
+    smem_f32[i] = *reinterpret_cast<const float4*>(w + (size_t)k * O + o0 + 4 * c4);
+  }
+  const float4 bq = *reinterpret_cast<const float4*>(bias + o0 + 4 * quad);
+  const int tiles = ((Ho + F_TP - 1) / F_TP) * tiles_w;
+
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const int b = (int)(item / tiles), t = (int)(item % tiles);
+    const int p0 = (t / tiles_w) * F_TP, q0 = (t % tiles_w) * F_TQ;
+    const int r0 = 2 * p0 - 1, c0 = 2 * q0 - 1;  // the tile's first conv position
+    __syncthreads();  // the previous item is done with Ps and Cs (and Ws is written)
+    // conv position (r, c) reads xs pixels (r + a, c + b): patch pixel (i, j)
+    // is xs (r0 + i, c0 + j), zero outside the image
+    for (int i = tid; i < F_PR * F_PC * 3; i += F_THREADS) {
+      const int pix = i / 3, part = i % 3;
+      const int rr = r0 + pix / F_PC, cc = c0 + pix % F_PC;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (rr >= 0 && rr < Hp && cc >= 0 && cc < Wp)
+        v = *reinterpret_cast<const float4*>(xs + (((size_t)b * Hp + rr) * Wp + cc) * 12 +
+                                             4 * part);
+      reinterpret_cast<float4*>(Ps)[i] = v;
+    }
+    __syncthreads();
+    for (int base = 0; base < F_NPOS; base += F_ROUND) {
+      int off[F_PPT];
+#pragma unroll
+      for (int i = 0; i < F_PPT; ++i) {
+        const int pos = min(base + i * F_LANES + lane, F_NPOS - 1);  // past the end: not stored
+        off[i] = ((pos / F_CC) * F_PC + pos % F_CC) * 12;
+      }
+      float acc[F_PPT][4];
+#pragma unroll
+      for (int i = 0; i < F_PPT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+#pragma unroll
+        for (int bb = 0; bb < 4; ++bb) {
+          const float* xp = Ps + (a * F_PC + bb) * 12;
+          const float* wp = Ws + (a * 4 + bb) * 12 * F_OG + 4 * quad;
+#pragma unroll
+          for (int ch = 0; ch < 12; ++ch) {
+            const float4 wv = *reinterpret_cast<const float4*>(wp + ch * F_OG);
+#pragma unroll
+            for (int i = 0; i < F_PPT; ++i) {
+              const float x = xp[off[i] + ch];
+              acc[i][0] = fmaf(x, wv.x, acc[i][0]);
+              acc[i][1] = fmaf(x, wv.y, acc[i][1]);
+              acc[i][2] = fmaf(x, wv.z, acc[i][2]);
+              acc[i][3] = fmaf(x, wv.w, acc[i][3]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < F_PPT; ++i) {
+        const int pos = base + i * F_LANES + lane;
+        if (pos < F_NPOS)
+          reinterpret_cast<float4*>(Cs)[pos * F_QUADS + quad] =
+              make_float4(fmaxf(acc[i][0] + bq.x, 0.0f), fmaxf(acc[i][1] + bq.y, 0.0f),
+                          fmaxf(acc[i][2] + bq.z, 0.0f), fmaxf(acc[i][3] + bq.w, 0.0f));
+      }
+    }
+    __syncthreads();
+    // 3x3/s2 SAME max over the conv positions inside [0,Hc)x[0,Wc) (the
+    // centre always is), then quantize; 4 channels a thread, one 4-byte store
+    for (int i = tid; i < F_TP * F_TQ * F_QUADS; i += F_THREADS) {
+      const int qd = i % F_QUADS, pp = i / F_QUADS;
+      const int p = p0 + pp / F_TQ, q = q0 + pp % F_TQ;
+      if (p >= Ho || q >= Wo) continue;
+      const float4* C4 = reinterpret_cast<const float4*>(Cs);
+      float4 m = C4[((2 * (p - p0) + 1) * F_CC + 2 * (q - q0) + 1) * F_QUADS + qd];
+      for (int dr = 0; dr < 3; ++dr) {
+        const int r = 2 * p - 1 + dr;
+        if (r < 0 || r >= Hc) continue;
+        for (int dc = 0; dc < 3; ++dc) {
+          const int c = 2 * q - 1 + dc;
+          if (c < 0 || c >= Wc) continue;
+          const float4 v = C4[((r - r0) * F_CC + (c - c0)) * F_QUADS + qd];
+          m = make_float4(fmaxf(m.x, v.x), fmaxf(m.y, v.y), fmaxf(m.z, v.z), fmaxf(m.w, v.w));
+        }
+      }
+      const float4 iv = *reinterpret_cast<const float4*>(inv + o0 + 4 * qd);
+      char4 res;
+      res.x = quant_f32(m.x * iv.x);
+      res.y = quant_f32(m.y * iv.y);
+      res.z = quant_f32(m.z * iv.z);
+      res.w = quant_f32(m.w * iv.w);
+      *reinterpret_cast<char4*>(out + (((size_t)b * Ho + p) * Wo + q) * O + o0 + 4 * qd) = res;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int automoe_stem_s2d_pool_int8(const void* xs, const void* w,
@@ -580,6 +740,43 @@ extern "C" int automoe_stem_s2d_pool_int8(const void* xs, const void* w,
       static_cast<const __nv_bfloat16*>(xs), static_cast<const __nv_bfloat16*>(w),
       static_cast<const float*>(bias), static_cast<const float*>(inv),
       static_cast<int8_t*>(out), B, Hp, Wp, O, Ho, Wo);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int automoe_stem_s2d_pool_int8_f32(const void* xs, const void* w,
+                                              const void* bias, const void* inv,
+                                              void* out, int B, int Hp, int Wp,
+                                              int O, void* stream) {
+  if (B <= 0 || Hp <= 4 || Wp <= 4 || O <= 0 || O % F_OG != 0)
+    return (int)cudaErrorInvalidValue;
+  const int Hc = Hp - 4, Wc = Wp - 4;
+  const int Ho = (Hc - 1) / 2 + 1, Wo = (Wc - 1) / 2 + 1;
+  constexpr int MAX_DEV = 64;
+  static int sm_count[MAX_DEV];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= MAX_DEV) return (int)cudaErrorInvalidDevice;
+  if (!sm_count[dev]) {
+    e = cudaFuncSetAttribute(s2d_stem_pool_int8_f32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, F_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    int n = 0;
+    e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    sm_count[dev] = n;
+  }
+  const int tiles_w = (Wo + F_TQ - 1) / F_TQ;
+  const long long items = (long long)B * ((Ho + F_TP - 1) / F_TP) * tiles_w;
+  const int groups = O / F_OG;
+  if (groups > 65535) return (int)cudaErrorInvalidValue;
+  // two resident blocks an SM, shared out between the channel groups
+  const int per_group = 2 * sm_count[dev] / groups > 0 ? 2 * sm_count[dev] / groups : 1;
+  const dim3 grid((unsigned)(items < per_group ? items : per_group), groups);
+  s2d_stem_pool_int8_f32_kernel<<<grid, F_THREADS, F_SMEM, (cudaStream_t)stream>>>(
+      static_cast<const float*>(xs), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<const float*>(inv),
+      static_cast<int8_t*>(out), B, Hp, Wp, O, Ho, Wo, tiles_w, items);
   return (int)cudaGetLastError();
 }
 

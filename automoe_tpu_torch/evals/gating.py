@@ -16,7 +16,8 @@ from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
-from torch import nn
+
+from automoe_tpu_torch.evals.common import Forward, as_forward
 
 _SCALARS = ("ade_l1", "fde_l1", "ade_euclid", "fde_euclid", "speed_loss", "entropy")
 
@@ -43,18 +44,19 @@ def automoe_eval_batch(pred: Dict[str, torch.Tensor], target_wp: torch.Tensor,
 
 
 @torch.no_grad()
-def evaluate_automoe(model: nn.Module, batches: Iterable) -> Dict[str, object]:
-    """The model in eval mode, on its device, over numpy batches (CARLA
-    sequence loader output); a repeat-padded tail batch counts its real
-    rows only."""
-    device = next(model.parameters()).device
-    model.eval()
+def evaluate_automoe(model: Forward, batches: Iterable, device=None) -> Dict[str, object]:
+    """`model` maps a batch dict of tensors to the AutoMoE output dict: the
+    model in eval mode on its device, or a callable (the int8 forward,
+    serving/quant.py::make_quant_forward) with `device`. Over numpy
+    batches (CARLA sequence loader output); a repeat-padded tail batch
+    counts its real rows only."""
+    forward, device = as_forward(model, device)
     sums = {k: 0.0 for k in _SCALARS}
     total, weights, logits, ctx_rows = 0, [], [], []
     for batch in batches:
         tb = {k: torch.as_tensor(v, device=device) for k, v in batch.items()
               if k != "_real_count" and not isinstance(v, list)}
-        m = automoe_eval_batch(model(tb), tb["waypoints"], tb["speed"])
+        m = automoe_eval_batch(forward(tb), tb["waypoints"], tb["speed"])
         bsz = int(batch.get("_real_count", tb["waypoints"].shape[0]))
         for k in sums:
             sums[k] += float(m[k]) * bsz

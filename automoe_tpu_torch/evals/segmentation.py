@@ -13,8 +13,8 @@ from typing import Dict, Iterable
 
 import numpy as np
 import torch
-from torch import nn
 
+from automoe_tpu_torch.evals.common import Forward, as_forward
 from automoe_tpu_torch.losses.segmentation import IGNORE_INDEX, segmentation_loss
 
 
@@ -50,16 +50,18 @@ def seg_eval_batch(logits: torch.Tensor, masks: torch.Tensor, *,
 
 
 @torch.no_grad()
-def evaluate_seg_like(model: nn.Module, batches: Iterable, *,
-                      num_classes: int) -> Dict[str, float]:
-    """The model in eval mode, on its device, over numpy batches (NHWC
-    images, [B,H,W] masks): the means over batches."""
-    device = next(model.parameters()).device
-    model.eval()
+def evaluate_seg_like(model: Forward, batches: Iterable, *, num_classes: int,
+                      device=None) -> Dict[str, float]:
+    """`model` maps an NCHW image to [B,C,H,W] logits: the module in eval
+    mode on its device, or a callable (the int8 forward) with `device`.
+    Over numpy batches (NHWC images, [B,H,W] masks): the means over
+    batches."""
+    forward, device = as_forward(model, device)
     total_loss, accs, ious = 0.0, [], []
     for batch in batches:
         image = torch.as_tensor(batch["image"], device=device).permute(0, 3, 1, 2)
-        m = seg_eval_batch(model(image), torch.as_tensor(batch["mask"], device=device),
+        m = seg_eval_batch(forward(image),
+                           torch.as_tensor(batch["mask"], device=device),
                            num_classes=num_classes)
         total_loss += float(m["loss"])
         accs.append(float(m["pixel_acc"]))

@@ -2,7 +2,9 @@
 
 K3 `s2d_stem_pool_int8`: the s2d stem conv of all experts + bias + ReLU +
 per-channel int8 quantize + 3x3/s2 max-pool, writing only the pooled int8
-tensor (port of automoe_tpu/ops/pallas_stem.py::_stem_kernel).
+tensor (port of automoe_tpu/ops/pallas_stem.py::_stem_kernel), for a bf16
+input (tensor-core kernel) or an f32 one (the kernel's f32 instantiation,
+FFMA on the CUDA cores), as the JAX kernel takes either.
 K4 `maxpool3x3s2_int8`: the int8 3x3/s2 SAME max-pool alone (port of
 pallas_stem.py::_pool_kernel).
 
@@ -24,7 +26,7 @@ from automoe_tpu_torch.ops._ext import check_cuda as _check_cuda
 from automoe_tpu_torch.ops._ext import load_library, raise_on
 
 #: kernel launches per wrapper (a plain-version call does not count)
-LAUNCHES = {"s2d_stem_pool_int8": 0, "maxpool3x3s2_int8": 0}
+LAUNCHES = {"s2d_stem_pool_int8": 0, "s2d_stem_pool_int8_f32": 0, "maxpool3x3s2_int8": 0}
 
 
 def reset_launch_counts() -> None:
@@ -34,9 +36,10 @@ def reset_launch_counts() -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.automoe_stem_s2d_pool_int8.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    for fn in (lib.automoe_stem_s2d_pool_int8, lib.automoe_stem_s2d_pool_int8_f32):
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        fn.restype = i
     lib.automoe_maxpool3x3s2_int8.argtypes = [p, p, i, i, i, i, p]
-    lib.automoe_stem_s2d_pool_int8.restype = i
     lib.automoe_maxpool3x3s2_int8.restype = i
 
 
@@ -101,8 +104,9 @@ def s2d_stem_pool_int8_plain(xs: torch.Tensor, w: torch.Tensor,
                              bias: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
     """xs [B,Hc+4,Wc+4,12], w [192,O] (row (a*4+b)*12+c), bias/inv [O] f32
     → [B,ceil(Hc/2),ceil(Wc/2),O] int8. In the order of the JAX kernel
-    (pallas_stem.py::_stem_kernel): the conv in f32 on the (bf16-exact)
-    inputs (F.conv2d, crop to [:Hc,:Wc]), bias, ReLU, the 3x3/s2 SAME
+    (pallas_stem.py::_stem_kernel): the conv in f32 on the bf16 or f32
+    inputs (F.conv2d, crop to [:Hc,:Wc]; on the card with TF32 off for an
+    f32 reference), bias, ReLU, the 3x3/s2 SAME
     max-pool of the f32 values (its -inf padding never wins: they are
     >= 0), then quantize. For any sign of inv."""
     B, hp, wp, cin = xs.shape
@@ -113,31 +117,39 @@ def s2d_stem_pool_int8_plain(xs: torch.Tensor, w: torch.Tensor,
     return quantize_int8(pooled, inv.float()[:, None, None]).permute(0, 2, 3, 1).contiguous()
 
 
+#: the kernel of each input dtype: (entry point, LAUNCHES key)
+_STEM_KERNELS = {
+    torch.bfloat16: ("automoe_stem_s2d_pool_int8", "s2d_stem_pool_int8"),
+    torch.float32: ("automoe_stem_s2d_pool_int8_f32", "s2d_stem_pool_int8_f32"),
+}
+
+
 def s2d_stem_pool_int8(xs: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                        inv: torch.Tensor) -> torch.Tensor:
-    """K3 on CUDA (xs, w bf16; bias, inv f32 of either sign), the plain
-    version on the CPU."""
+    """K3 on CUDA (xs and w both bf16, or both f32; bias, inv f32 of either
+    sign), the plain version on the CPU."""
     if xs.device.type == "cpu":
         return s2d_stem_pool_int8_plain(xs, w, bias, inv)
     _check_cuda("s2d_stem_pool_int8", xs, w, bias, inv)
     B, hp, wp, cin = xs.shape
     O = w.shape[-1]
-    if (xs.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 or cin != 12
+    if (xs.dtype not in _STEM_KERNELS or w.dtype != xs.dtype or cin != 12
             or tuple(w.shape) != (192, O) or O % 64
             or bias.dtype != torch.float32 or inv.dtype != torch.float32
             or bias.numel() != O or inv.numel() != O or hp <= 4 or wp <= 4):
         raise ValueError(
-            "s2d_stem_pool_int8: need xs bf16 [B,H,W,12], w bf16 [192,64k], "
-            f"bias/inv f32 [O]; got xs {xs.dtype} {tuple(xs.shape)}, "
+            "s2d_stem_pool_int8: need xs [B,H,W,12] and w [192,64k] both bf16 or both "
+            f"f32, bias/inv f32 [O]; got xs {xs.dtype} {tuple(xs.shape)}, "
             f"w {w.dtype} {tuple(w.shape)}, bias {bias.dtype}, inv {inv.dtype}"
         )
+    entry, key = _STEM_KERNELS[xs.dtype]
     out = torch.empty((B, *pool_out_hw(hp - 4, wp - 4), O), dtype=torch.int8,
                       device=xs.device)
-    err = build().automoe_stem_s2d_pool_int8(
+    err = getattr(build(), entry)(
         xs.data_ptr(), w.data_ptr(), bias.data_ptr(), inv.data_ptr(),
         out.data_ptr(), B, hp, wp, O,
         torch.cuda.current_stream(xs.device).cuda_stream,
     )
-    raise_on(err, "s2d_stem_pool_int8")
-    LAUNCHES["s2d_stem_pool_int8"] += 1
+    raise_on(err, key)
+    LAUNCHES[key] += 1
     return out

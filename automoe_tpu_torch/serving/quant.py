@@ -1,6 +1,8 @@
 """Post-training int8 quantization for the serving path (port of
 automoe_tpu/serving/quant.py, the path `make_quant_forward` runs by
-default: trunk "q8", stem "s2d").
+default: trunk "q8", stem "s2d"; and, for one expert evaluated alone,
+`quantize_expert` + `make_expert_quant_apply` over the q8 trunk with its
+own float stem).
 
   * BatchNorm is FOLDED into the preceding conv (exact at inference);
   * trunk weights are int8 with per-output-channel scales (symmetric);
@@ -409,3 +411,89 @@ def make_quant_forward(config, scales: List[Dict[str, float]], dtype=torch.bfloa
                                     "gate_logits")}
 
     return forward
+
+
+# ---------------------------------------------------------------------------
+# One standalone expert (the eval CLI's `bdd --quantize`)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def quantize_expert(expert, calib_images: Sequence, dtype=torch.bfloat16,
+                    float_convs: frozenset = DEFAULT_FLOAT_CONVS,
+                    backbone: str = "backbone"):
+    """(qpack, scales) for ONE standalone expert (BDD detection,
+    segmentation or drivable): the per-expert counterpart of
+    `quantize_automoe`, so the expert evals can measure the int8 task
+    metrics against the float ones. Folds from the expert's float32
+    weights; calibrates on NHWC images (numpy or tensors), run on the
+    expert's device."""
+    folded = fold_resnet(getattr(expert, backbone))
+    device = next(expert.parameters()).device
+    scales: Dict[str, float] = {}
+    for img in calib_images:
+        image = torch.as_tensor(img, device=device).to(dtype).permute(0, 3, 1, 2)
+        c: Dict[str, torch.Tensor] = {}
+        resnet_float_forward(folded, image, dtype=dtype, collect=c)
+        for k, v in c.items():
+            scales[k] = max(scales.get(k, 0.0), float(v))
+    return quantize_folded(folded, float_convs), scales
+
+
+def prepare_qexpert(qpack: Dict, scales: Dict[str, float], dtype=torch.bfloat16,
+                    device="cpu") -> Dict:
+    """Device-side constants of a `quantize_expert` pack: its float stem
+    conv (OIHW, in `dtype`) and its int8 trunk."""
+    p = qpack["conv1"]
+    if "wq" in p:
+        raise NotImplementedError("the q8 trunk keeps the stem float")
+    return {"stem_w": torch.from_numpy(p["w"]).to(device, dtype),
+            "stem_b": torch.from_numpy(p["b"]).to(device, dtype),
+            "trunk": pack_trunk(qpack, scales, device)}
+
+
+def float_stem_q8(qexpert: Dict, scales: Dict[str, float], x: torch.Tensor,
+                  dtype=torch.bfloat16):
+    """The q8 trunk's own float stem, for an expert served alone (the JAX
+    package's resnet_quant_forward_q8 with stem_in=None): the 7x7/s2 conv
+    + bias in `dtype`, ReLU, the 3x3/s2 SAME max-pool (-inf padding), then
+    the int8 domain at layer1_0/conv1's scale. x NCHW → (xq int8 NHWC, si)."""
+    h = F.conv2d(x.to(dtype), qexpert["stem_w"], stride=2, padding=3) \
+        + qexpert["stem_b"][:, None, None]
+    h = F.max_pool2d(torch.relu(h), 3, 2, 1)
+    si = _act_scale(scales["layer1_0/conv1"])
+    return _quant(h.float().permute(0, 2, 3, 1).contiguous(), si), si
+
+
+def make_expert_quant_apply(task: str, num_classes: int, scales: Dict[str, float],
+                            dtype=torch.bfloat16, trunk: str = "q8"):
+    """fn(expert, qexpert, image) with the output contract of the float
+    expert module's forward over an int8 trunk, image NCHW: detection →
+    {class_logits, bbox_deltas} on the dense grid; segmentation and drivable
+    → [B,C,H,W] logits resized to the image (ops/resize.py, bilinear, no
+    antialias). `expert` is the float module (its head or decoder runs, in
+    the module's dtype, which should be `dtype`); `qexpert` comes from
+    `prepare_qexpert`. Plugs into evaluate_detection / evaluate_seg_like
+    with functools.partial(fn, expert, qexpert)."""
+    if trunk == "v1":
+        raise NotImplementedError("trunk='v1' (the bf16 round trip between int8 convs, "
+                                  "resnet_quant_forward) is not ported: ROADMAP.md §1, "
+                                  "'Serving and model leftovers'")
+    if trunk != "q8":
+        raise ValueError(f"unknown trunk {trunk!r}")
+    if task not in ("detection", "segmentation", "drivable"):
+        raise ValueError(f"unknown task {task!r}")
+    from automoe_tpu_torch.models.experts import bilinear_resize
+
+    @torch.no_grad()
+    def apply_fn(expert, qexpert: Dict, image: torch.Tensor):
+        if expert.num_classes != num_classes:
+            raise ValueError(f"the expert has {expert.num_classes} classes, not {num_classes}")
+        feats = resnet_quant_forward_q8(qexpert["trunk"], scales,
+                                        float_stem_q8(qexpert, scales, image, dtype),
+                                        dtype=dtype).permute(0, 3, 1, 2)
+        out = expert.heads(feats)
+        if task == "detection":
+            return out
+        return bilinear_resize(out, image.shape[2], image.shape[3])
+
+    return apply_fn

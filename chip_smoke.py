@@ -15,7 +15,10 @@ Phases, each of which must pass (none is caught):
      point, three blocks of 50) and through its
      wrapper, beside the plain version and the unfused "pool"-variant
      path (serving/quant.py::s2d_stem_pool_unfused: cuDNN conv, quantize,
-     K4) at the same shapes;
+     K4) at the same shapes; then K3's f32 instantiation (the int8 path
+     at --fp32) against its plain version at B=8 and B=32, TF32 off, the
+     same tolerance, timed alone, through its wrapper and plain, its bound
+     the FFMA operations over 67 TFLOP/s (f32 outside the tensor cores);
   3. K4, the int8 3x3/s2 pool kernel, against its plain version at
      [8,128,128,256] and [128,128,128,256]: bit-exact; the kernel's time
      alone (three blocks of 50 back-to-back launches of the library's
@@ -128,7 +131,19 @@ Phases, each of which must pass (none is caught):
      cache loaded from D, nothing computed), each call's stream time
      beside phase 12's plain gating step; (e) `automoe-serve-torch
      --checkpoint <(c)'s best> --quantize` answers 4 TCP requests, K3 once
-     per server batch.
+     per server batch;
+ 16. the eval CLI, `automoe-eval-torch`, at the CLI's widths (256x256,
+     batch 32, box cap 48) on synthetic CARLA frames, each run on the card
+     and again with --device cpu (TF32 off), the JSON held card against
+     CPU (float: rtol / atol 1e-3; int8: 3% / 0.05, as phase 6): `bdd
+     --task detection` on phase 12's detection checkpoint, 64 frames, with
+     and without --quantize (K2 alone once per batch), `bdd --task
+     drivable` on phase 13's (no kernel), `nuscenes` on phase 13's LiDAR +
+     TNet checkpoint (K2 once per batch), `gating --quantize` on phase 12's
+     gating checkpoint, 64 windows (K3 f32 once per batch),
+     `visualize-detection` (16 overlays, K2 once), `training-curves` on
+     phase 12's detection run; then `automoe-serve-torch --quantize
+     --fp32` answers 4 TCP requests, K3 f32 once per server batch.
 
 Prints the card's name and power limit, one JSON line of kernel results,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a CUDA
@@ -150,6 +165,8 @@ import numpy as np
 # published dense peaks of one H100 SXM (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+# float32 on the CUDA cores (FFMA), outside the tensor cores: the same data sheet
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 SEED = 0
 B_MAIN = 8
@@ -206,8 +223,10 @@ def stem_inputs(B: int, gen):
     return xs, w, bias, inv
 
 
-def stem_kernel_ms(stem, xs, w, bias, inv, blocks: int = 3, iters: int = 50) -> list:
-    """K3 alone: the library's entry point launched back to back on pre-built
+def stem_kernel_ms(stem, xs, w, bias, inv, blocks: int = 3, iters: int = 50,
+                   entry: str = "automoe_stem_s2d_pool_int8") -> list:
+    """K3 alone: the library's entry point (`entry`: the bf16 kernel, or
+    automoe_stem_s2d_pool_int8_f32) launched back to back on pre-built
     inputs (no wrapper checks, no launch count), CUDA events around each
     block of `iters` launches; the mean of each block."""
     import torch
@@ -219,12 +238,38 @@ def stem_kernel_ms(stem, xs, w, bias, inv, blocks: int = 3, iters: int = 50) -> 
                       device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
 
+    fn = getattr(lib, entry)
+
     def launch():
-        stem.raise_on(lib.automoe_stem_s2d_pool_int8(
-            xs.data_ptr(), w.data_ptr(), bias.data_ptr(), inv.data_ptr(), out.data_ptr(),
-            B, hp, wp, O, stream), "s2d_stem_pool_int8")
+        stem.raise_on(fn(xs.data_ptr(), w.data_ptr(), bias.data_ptr(), inv.data_ptr(),
+                         out.data_ptr(), B, hp, wp, O, stream), entry)
 
     return [cuda_ms(launch, iters=iters) for _ in range(blocks)]
+
+
+def k3_against_plain(stem, args, gen):
+    """K3 (either dtype) on (xs, w, bias, inv) of a 256x256 input, O = 256,
+    against its plain version, with inv as given and with inv of both
+    signs (about half the channels negative, one zero): int8 outputs within
+    ±1 on at most 0.1% of elements. Returns (the output, max error, share
+    of elements off, the same two with mixed signs)."""
+    import torch
+
+    out = stem.s2d_stem_pool_int8(*args)
+    torch.cuda.synchronize()
+    d = (out.int() - stem.s2d_stem_pool_int8_plain(*args).int()).abs()
+    max_err, frac = int(d.max()), float((d > 0).float().mean())
+    assert out.shape == (args[0].shape[0], 64, 64, 256) and out.dtype == torch.int8
+    assert max_err <= 1 and frac <= 1e-3, (args[0].dtype, max_err, frac)
+    xs, w, bias, inv = args
+    sign = torch.where(torch.rand(256, device="cuda", generator=gen) < 0.5, -1.0, 1.0)
+    mixed = (xs, w, bias, inv * sign * (torch.arange(256, device="cuda") != 7))
+    d = (stem.s2d_stem_pool_int8(*mixed).int()
+         - stem.s2d_stem_pool_int8_plain(*mixed).int()).abs()
+    torch.cuda.synchronize()
+    mixed_err, mixed_frac = int(d.max()), float((d > 0).float().mean())
+    assert mixed_err <= 1 and mixed_frac <= 1e-3, (xs.dtype, mixed_err, mixed_frac)
+    return out, max_err, frac, mixed_err, mixed_frac
 
 
 def phase_k3(stem, gen):
@@ -241,22 +286,8 @@ def phase_k3(stem, gen):
     res = {}
     for B in (B_MAIN, 128):
         args = stem_inputs(B, gen)
-        out = stem.s2d_stem_pool_int8(*args)
-        torch.cuda.synchronize()
-        ref = stem.s2d_stem_pool_int8_plain(*args)
-        d = (out.int() - ref.int()).abs()
-        max_err, frac = int(d.max()), float((d > 0).float().mean())
-        assert out.shape == (B, 64, 64, 256) and out.dtype == torch.int8
-        assert max_err <= 1 and frac <= 1e-3, (B, max_err, frac)
-        # inv of both signs (about half the channels negative, one zero)
+        out, max_err, frac, mixed_err, mixed_frac = k3_against_plain(stem, args, gen)
         xs, w, bias, inv = args
-        sign = torch.where(torch.rand(256, device="cuda", generator=gen) < 0.5, -1.0, 1.0)
-        mixed = (xs, w, bias, inv * sign * (torch.arange(256, device="cuda") != 7))
-        d = (stem.s2d_stem_pool_int8(*mixed).int()
-             - stem.s2d_stem_pool_int8_plain(*mixed).int()).abs()
-        torch.cuda.synchronize()
-        mixed_err, mixed_frac = int(d.max()), float((d > 0).float().mean())
-        assert mixed_err <= 1 and mixed_frac <= 1e-3, (B, mixed_err, mixed_frac)
         flops = 2.0 * B * 128 * 128 * 192 * 256
         b_ms, b_by = bound(flops, PEAK_BF16_FLOPS, nbytes(*args, out))
         unfused = (xs, w.reshape(4, 4, 12, -1).permute(3, 2, 0, 1).contiguous(),
@@ -273,6 +304,39 @@ def phase_k3(stem, gen):
                            for _ in range(3)])),
                       bound_ms=b_ms, bound_by=b_by)
         print(f"K3 B={B}: {res[B]}", flush=True)
+    return res
+
+
+def phase_k3_f32(stem, gen):
+    """K3's f32 instantiation against its plain version at B=8 and B=32,
+    256x256 input, O = 256, TF32 off (so the plain conv is an f32 one):
+    int8 outputs within ±1 on at most 0.1% of elements, with inv > 0 and
+    with inv of both signs. Times: the kernel alone (three blocks of 20
+    back-to-back launches, the median block), its wrapper (median of 20
+    calls) and the plain version (mean of 5). Bound: the FFMA operations
+    over the f32 peak outside the tensor cores, or the bytes."""
+    import torch
+
+    res = {}
+    for B in (B_MAIN, 32):
+        xs = torch.randn(B, 132, 132, 12, device="cuda", generator=gen)
+        w = torch.randn(192, 256, device="cuda", generator=gen) * 0.05
+        bias = torch.randn(256, device="cuda", generator=gen) * 0.1
+        inv = 127.0 / (torch.rand(256, device="cuda", generator=gen) * 4 + 1)
+        args = (xs, w, bias, inv)
+        out, max_err, frac, mixed_err, mixed_frac = k3_against_plain(stem, args, gen)
+        flops = 2.0 * B * 128 * 128 * 192 * 256
+        b_ms, b_by = bound(flops, PEAK_F32_FLOPS, nbytes(*args, out))
+        blocks = stem_kernel_ms(stem, *args, iters=20,
+                                entry="automoe_stem_s2d_pool_int8_f32")
+        res[B] = dict(max_abs_err=max_err, diff_frac=frac, mixed_sign_inv_max_abs_err=mixed_err,
+                      mixed_sign_inv_diff_frac=mixed_frac,
+                      ms=float(np.median(blocks)), ms_blocks=blocks,
+                      wrapper_ms=cuda_ms_median(lambda: stem.s2d_stem_pool_int8(*args),
+                                                iters=20),
+                      plain_ms=cuda_ms(lambda: stem.s2d_stem_pool_int8_plain(*args), 5),
+                      bound_ms=b_ms, bound_by=b_by)
+        print(f"K3 f32 B={B}: {res[B]}", flush=True)
     return res
 
 
@@ -492,9 +556,10 @@ def metrics_of(run_dir: Path):
             [r["val/loss"] for r in recs if "val/loss" in r])
 
 
-def serve_four(argv, frames, speeds):
+def serve_four(argv, frames, speeds, kernel: str = "s2d_stem_pool_int8"):
     """automoe-serve-torch with `argv` answers 4 concurrent TCP requests;
-    returns (server batches, K3 launches counted from 0 around them)."""
+    returns (server batches, launches of the stem kernel `kernel` counted
+    from 0 around them; no other stem kernel may launch)."""
     from automoe_tpu_torch.ops import stem
     from automoe_tpu_torch.serving import Client
     from automoe_tpu_torch.serving.cli import main as serve_main
@@ -515,7 +580,7 @@ def serve_four(argv, frames, speeds):
             t.start()
         for t in threads:
             t.join(timeout=300)
-        launches = stem.LAUNCHES["s2d_stem_pool_int8"]
+        counts = dict(stem.LAUNCHES)
         n_batches = batcher.stats["batches"]
     finally:
         srv.shutdown()
@@ -524,7 +589,9 @@ def serve_four(argv, frames, speeds):
         assert a is not None and a["waypoints"].shape == (10, 2)
         assert np.isfinite(a["waypoints"]).all()
         np.testing.assert_allclose(a["expert_weights"].sum(), 1.0, rtol=1e-2)
-    assert launches == n_batches >= 1, (launches, n_batches)
+    launches = counts.pop(kernel)
+    assert launches == n_batches >= 1 and not any(counts.values()), (kernel, launches, counts,
+                                                                      n_batches)
     return n_batches, launches
 
 
@@ -1058,6 +1125,114 @@ def phase_cached_step_equals_experts_eval():
     return out
 
 
+#: card against CPU in phase 16 (TF32 off): the float evals' losses and
+#: metrics (a near-tie match that forks moves a loss by less), and the int8
+#: ones, whose trunks turn the kernels' rounding flips into drift: held as
+#: phase 6 holds the int8 engine (3% of a value, 0.05 on an expert weight)
+EVAL_RTOL, EVAL_ATOL = 1e-3, 1e-3
+EVAL_INT8_RTOL, EVAL_INT8_ATOL = 0.03, 0.05
+
+
+def eval_cli_run(argv, out_dir: Path, device: str):
+    """One `automoe-eval-torch` run with every kernel's launches counted
+    from 0: (result, {kernel: launches})."""
+    from automoe_tpu_torch.evals.cli import main as eval_main
+    from automoe_tpu_torch.ops import auction_kernel as ak
+    from automoe_tpu_torch.ops import stem
+
+    ak.reset_launch_counts()
+    stem.reset_launch_counts()
+    res = eval_main(argv + ["--device", device, "--out-dir", str(out_dir)])
+    return res, {**ak.LAUNCHES, **stem.LAUNCHES}
+
+
+def close_json(got, want, rtol: float, atol: float, path: str = "") -> float:
+    """Assert two eval results agree (numbers at rtol / atol, the rest
+    equal); returns the largest absolute difference."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), (path, sorted(got), sorted(want))
+        return max([close_json(got[k], want[k], rtol, atol, f"{path}/{k}") for k in want] or [0])
+    if isinstance(want, list):
+        assert len(got) == len(want), (path, len(got), len(want))
+        return max([close_json(g, w, rtol, atol, f"{path}[{i}]")
+                    for i, (g, w) in enumerate(zip(got, want))] or [0])
+    if isinstance(want, bool) or not isinstance(want, (int, float)):
+        assert got == want, (path, got, want)
+        return 0.0
+    assert np.isfinite(got) and abs(got - want) <= atol + rtol * abs(want), (path, got, want)
+    return abs(got - want)
+
+
+def phase_eval_cli(tmp: Path, det_best: Path, gating_best: Path, det_run: Path,
+                   other_tmp: Path, frames, speeds):
+    """16: `automoe-eval-torch` on the card at the CLI's widths (256x256,
+    batch 32, ResNet-18 experts, the default gating config) on synthetic
+    CARLA frames, each run held against the same command with --device cpu,
+    TF32 off; then `automoe-serve-torch --quantize --fp32`."""
+    from automoe_tpu_torch.tools.synth import synth_carla_detection, synth_carla_sequence
+
+    det = synth_carla_detection(tmp / "det", n_per_split={"val": 64}, size=256, max_boxes=20,
+                                seed=SEED + 16)
+    # 2 runs of 42 frames: 64 windows at horizon 10, 2 batches of 32
+    seq = synth_carla_sequence(tmp / "seq", n_per_split={"val": 84}, runs=2, size=256,
+                               seed=SEED + 16)
+    nus_best = next((other_tmp / "ck" / "nuscenes").glob("*/best.pt"))
+    drv_best = next((other_tmp / "ck" / "bdd_drivable").glob("*/best.pt"))
+    det_cmd = ["--source", "carla", "--data-root", str(det), "--checkpoint", str(det_best)]
+    # name: (argv, int8?, {kernel: launches on the card})
+    cases = {
+        "bdd detection": (["bdd", "--task", "detection", *det_cmd], False,
+                          {"auction_solve": 2}),
+        "bdd detection --quantize": (["bdd", "--task", "detection", "--quantize", *det_cmd],
+                                     True, {"auction_solve": 2}),
+        "bdd drivable": (["bdd", "--task", "drivable", "--source", "carla", "--data-root",
+                          str(other_tmp / "cseg"), "--checkpoint", str(drv_best)], False, {}),
+        "nuscenes": (["nuscenes", "--data-root", str(other_tmp / "nus"), "--checkpoint",
+                      str(nus_best)], False, {"auction_solve": 1}),
+        "gating --quantize": (["gating", "--data-root", str(seq), "--checkpoint",
+                               str(gating_best), "--quantize"], True,
+                              {"s2d_stem_pool_int8_f32": 2}),
+        "visualize-detection": (["visualize-detection", *det_cmd], False,
+                                {"auction_solve": 1}),
+    }
+    out = {}
+    for name, (argv, int8, want_launches) in cases.items():
+        run = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            res, launches = eval_cli_run(argv, tmp / name.replace(" ", "_") / device, device)
+            run[device] = (res, launches, time.perf_counter() - t0)
+        res, launches, seconds = run["cuda"]
+        got = {k: v for k, v in launches.items() if v}
+        assert got == want_launches, (name, got, want_launches)
+        assert not any(run["cpu"][1].values()), (name, run["cpu"][1])
+        diff = close_json(res, run["cpu"][0], *((EVAL_INT8_RTOL, EVAL_INT8_ATOL) if int8
+                                                 else (EVAL_RTOL, EVAL_ATOL)))
+        out[name] = dict(
+            result=res if isinstance(res, dict) else {"rows": len(res), "first": res[0]},
+            launches=got, max_abs_diff_vs_cpu=diff, seconds_cuda=seconds,
+            seconds_cpu=run["cpu"][2])
+        print(f"phase 16 {name}: {out[name]}", flush=True)
+    vis = sorted(p.name for p in (tmp / "gating_--quantize" / "cuda" / "vis").iterdir())
+    assert vis == ["context_corr_pearson.png", "context_corr_spearman.png",
+                   "expert_usage.png"], vis
+    assert len(list((tmp / "visualize-detection" / "cuda" / "vis").glob("det_*.jpg"))) == 16
+
+    from automoe_tpu_torch.evals.cli import main as eval_main
+
+    curves = eval_main(["training-curves", "--run-dir", str(det_run), "--out",
+                        str(tmp / "curves.png")])
+    assert curves["tags"] and (tmp / "curves.png").stat().st_size > 0, curves
+    out["training-curves"] = curves
+    print(f"phase 16 training-curves: {curves}", flush=True)
+
+    n_batches, launches = serve_four(["--quantize", "--fp32"], frames, speeds,
+                                     kernel="s2d_stem_pool_int8_f32")
+    out["serve --quantize --fp32"] = dict(batches=n_batches, k3_f32_launches=launches)
+    print(f"phase 16 serve --quantize --fp32: {out['serve --quantize --fp32']}", flush=True)
+    return out
+
+
 def rel_err(a, b) -> float:
     a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
     return float(np.abs(a - b).mean() / (np.abs(a).mean() + 1e-12))
@@ -1121,8 +1296,8 @@ def main() -> int:
     stem.build()
     print(f"build: {time.perf_counter() - t_build:.1f} s", flush=True)
 
-    # 2-3. kernels against their plain versions
-    k3, k4 = phase_k3(stem, gen), phase_k4(stem, gen)
+    # 2-3. kernels against their plain versions (K3 in bf16 and f32)
+    k3, k3f, k4 = phase_k3(stem, gen), phase_k3_f32(stem, gen), phase_k4(stem, gen)
 
     # 4. f32 engine, card vs CPU, small input
     cfg = default_model_config()
@@ -1203,8 +1378,9 @@ def main() -> int:
         nuscenes_workload(num_queries=16, use_lidar=True, use_tnet=True, fusion="concat",
                           matcher="auction_kernel"), nuscenes_step_batches(), "nuscenes step")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
-    with tempfile.TemporaryDirectory() as tmp:
-        other = phase_other_experts(Path(tmp), frames, speeds)
+    # its nuScenes and drivable checkpoints and caches feed phase 16
+    tmp13 = tempfile.TemporaryDirectory()
+    other = phase_other_experts(Path(tmp13.name), frames, speeds)
 
     # 14. the step options: card against CPU (TF32 off), then through the
     # entry points at the default precision
@@ -1227,7 +1403,18 @@ def main() -> int:
         fast.update(phase_fast_data(
             Path(tmp), Path(tmp12.name) / "ckpt" / "bdd_detection" / "det" / "best.pt",
             pipeline["gating"], frames, speeds))
+
+    # 16. the eval CLI on the card against the CPU (TF32 off), on phase 12's
+    # and 13's checkpoints; then serving at f32 with int8 trunks
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    ck12 = Path(tmp12.name) / "ckpt"
+    with tempfile.TemporaryDirectory() as tmp:
+        evals = phase_eval_cli(Path(tmp), ck12 / "bdd_detection" / "det" / "best.pt",
+                               ck12 / "gating" / "gating" / "best.pt",
+                               Path(tmp12.name) / "runs" / "bdd_detection_det",
+                               Path(tmp13.name), frames, speeds)
     tmp12.cleanup()
+    tmp13.cleanup()
 
     src = "automoe_tpu_torch/csrc/stem.cu"
     main_, big = k3[B_MAIN], k3[128]
@@ -1261,6 +1448,31 @@ def main() -> int:
                                      "mixed_sign_inv_max_abs_err",
                                      "mixed_sign_inv_diff_frac")},
     }]
+    main_, small = k3f[32], k3f[B_MAIN]
+    kernels.append({
+        "name": "s2d_stem_pool_int8_f32", "route": "cuda", "source": src,
+        "replaces": "automoe_tpu/ops/pallas_stem.py:103 (its f32 instantiation, :231, :254)",
+        "launches": evals["gating --quantize"]["launches"]["s2d_stem_pool_int8_f32"],
+        "max_abs_err": main_["max_abs_err"], "diff_frac": main_["diff_frac"],
+        "ms": main_["ms"], "plain_ms": main_["plain_ms"], "bound_ms": main_["bound_ms"],
+        "bound_by": main_["bound_by"],
+        "bound_basis": "2*B*128*128*192*256 FFMA operations over 67 TFLOP/s (f32 outside the "
+                       "tensor cores, H100 SXM data sheet), or the bytes over 3.35 TB/s",
+        # no single PyTorch call computes conv + bias + ReLU + quantize + pool
+        "library_ms": None,
+        "shape_batch": 32, "ms_blocks": main_["ms_blocks"], "wrapper_ms": main_["wrapper_ms"],
+        "mixed_sign_inv_max_abs_err": main_["mixed_sign_inv_max_abs_err"],
+        "mixed_sign_inv_diff_frac": main_["mixed_sign_inv_diff_frac"],
+        "launches_by_path": {
+            "automoe-eval-torch gating --quantize, 2 batches of 32 (phase 16)":
+                evals["gating --quantize"]["launches"]["s2d_stem_pool_int8_f32"],
+            "automoe-serve-torch --quantize --fp32 (phase 16)":
+                evals["serve --quantize --fp32"]["k3_f32_launches"]},
+        "b8": {k: small[k] for k in ("ms", "ms_blocks", "wrapper_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "max_abs_err", "diff_frac",
+                                     "mixed_sign_inv_max_abs_err",
+                                     "mixed_sign_inv_diff_frac")},
+    })
     main_, big = k4[B_MAIN], k4[128]
     kernels.append({
         "name": "maxpool3x3s2_int8", "route": "cuda", "source": src,
@@ -1304,7 +1516,11 @@ def main() -> int:
             "bdd --packed-root, 2 epochs (phase 15b)":
                 fast["b"]["packed-root"]["k1_launches"],
             "bdd --data-root, the same 2 epochs (phase 15b)":
-                fast["b"]["data-root"]["k1_launches"]},
+                fast["b"]["data-root"]["k1_launches"],
+            **{f"automoe-eval-torch {name}, max_iters=0 (phase 16)": v["launches"].get(
+                "auction_solve", 0) for name, v in evals.items()
+               if name in ("bdd detection", "bdd detection --quantize", "nuscenes",
+                           "visualize-detection")}},
         **{name: {k: v[name][k] for k in ("shape", "ms", "ms_blocks", "wrapper_ms", "plain_ms",
                                           "bound_ms", "bound_by", "max_abs_err",
                                           "scipy_cost_gap", "scipy_cost_gap_rel",
@@ -1321,6 +1537,7 @@ def main() -> int:
           flush=True)
     print(json.dumps({"step_options": {"card_vs_cpu": options_step, **options}}), flush=True)
     print(json.dumps({"fast_data": fast}), flush=True)
+    print(json.dumps({"eval_cli": evals}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

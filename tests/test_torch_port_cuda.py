@@ -99,14 +99,99 @@ def test_pool_kernel_matches_plain(gen, shape):
     assert torch.equal(out, stem.maxpool3x3s2_int8_plain(x))
 
 
-def test_stem_kernel_rejects_bad_inputs(gen):
+@pytest.mark.parametrize("xs_dtype,w_dtype", [
+    (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float32),
+    (torch.float16, torch.float16),
+])
+def test_stem_kernel_rejects_bad_inputs(gen, xs_dtype, w_dtype):
+    """Mixed dtypes, or one that is neither bf16 nor f32: raised before any
+    launch."""
     from automoe_tpu_torch.ops import stem
 
-    xs = torch.zeros(1, 36, 36, 12, device="cuda")  # f32, not bf16
-    w = torch.zeros(192, 64, device="cuda", dtype=torch.bfloat16)
+    xs = torch.zeros(1, 36, 36, 12, device="cuda", dtype=xs_dtype)
+    w = torch.zeros(192, 64, device="cuda", dtype=w_dtype)
     v = torch.zeros(64, device="cuda")
+    n = dict(stem.LAUNCHES)
     with pytest.raises(ValueError):
         stem.s2d_stem_pool_int8(xs, w, v, v)
+    assert stem.LAUNCHES == n
+
+
+def _stem_inputs_f32(gen, B, H, W, O=256, mixed_sign=False):
+    """_stem_inputs in float32 (xs and w not rounded to bf16); with
+    mixed_sign about half of inv negative and one inv 0."""
+    xs = torch.randn(B, H // 2 + 4, W // 2 + 4, 12, device="cuda", generator=gen)
+    w = torch.randn(192, O, device="cuda", generator=gen) * 0.05
+    bias = torch.randn(O, device="cuda", generator=gen) * 0.1
+    inv = 127.0 / (torch.rand(O, device="cuda", generator=gen) * 4 + 1)
+    if mixed_sign:
+        inv = inv * torch.where(torch.rand(O, device="cuda", generator=gen) < 0.5, -1.0, 1.0)
+        inv[7] = 0
+    return xs, w, bias, inv
+
+
+@pytest.mark.parametrize("B,H,W,O,mixed_sign", [
+    pytest.param(8, 256, 256, 256, False, id="B8-256-positive"),
+    pytest.param(8, 256, 256, 256, True, id="B8-256-mixed-sign"),
+    pytest.param(32, 256, 256, 256, False, id="B32-256-positive"),
+    pytest.param(32, 256, 256, 256, True, id="B32-256-mixed-sign"),
+    pytest.param(2, 50, 86, 128, False, id="conv-25x43-partial-tiles"),
+    pytest.param(3, 34, 18, 192, True, id="conv-17x9-O192"),
+    pytest.param(1, 64, 64, 64, False, id="B1-one-expert"),
+])
+def test_stem_kernel_f32_matches_plain(gen, B, H, W, O, mixed_sign):
+    """K3's f32 instantiation against the plain version (TF32 off, so the
+    plain conv is an f32 one): the int8 outputs at most 1 apart, in at most
+    1e-3 of the elements (summation order moves a round(h * inv) by one),
+    as the bf16 kernel is held; launched once, under its own count."""
+    from automoe_tpu_torch.ops import stem
+
+    xs, w, bias, inv = _stem_inputs_f32(gen, B, H, W, O, mixed_sign)
+    n = dict(stem.LAUNCHES)
+    out = stem.s2d_stem_pool_int8(xs, w, bias, inv)
+    torch.cuda.synchronize()
+    assert stem.LAUNCHES["s2d_stem_pool_int8_f32"] == n["s2d_stem_pool_int8_f32"] + 1
+    assert stem.LAUNCHES["s2d_stem_pool_int8"] == n["s2d_stem_pool_int8"]
+    ref = stem.s2d_stem_pool_int8_plain(xs, w, bias, inv)
+    assert out.shape == ref.shape and out.dtype == torch.int8
+    d = (out.int() - ref.int()).abs()
+    assert d.max() <= 1 and (d > 0).float().mean() <= 1e-3
+    if mixed_sign:
+        assert (out[..., 7] == 0).all()
+
+
+def test_stem_kernel_f32_is_deterministic(gen):
+    from automoe_tpu_torch.ops import stem
+
+    args = _stem_inputs_f32(gen, 3, 256, 256, mixed_sign=True)
+    first = stem.s2d_stem_pool_int8(*args)
+    second = stem.s2d_stem_pool_int8(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_int8_engine_f32_on_cuda_matches_cpu(gen):
+    """InferenceEngine(quantize=True, dtype=float32), the engine of
+    `automoe-serve-torch --quantize --fp32`: on the card its stem is K3's
+    f32 kernel, once a step, and its expert weights stay within 0.05 of
+    the same engine's on the CPU (the plain version), as the int8 engine is
+    held against the float one."""
+    from automoe_tpu_torch.configs import default_model_config
+    from automoe_tpu_torch.infer import InferenceEngine
+    from automoe_tpu_torch.ops import stem
+
+    frames = np.random.default_rng(1).integers(0, 256, (2, 96, 128, 3), dtype=np.uint8)
+    kw = dict(camera_hw=(96, 128), model_hw=(64, 64), dtype=torch.float32, quantize=True)
+    want = InferenceEngine(default_model_config(), device="cpu", **kw).infer_batch(
+        frames, np.ones(2))
+    eng = InferenceEngine(default_model_config(), device="cuda", **kw)
+    stem.reset_launch_counts()
+    got = eng.infer_batch(frames, np.ones(2))
+    assert stem.LAUNCHES == {"s2d_stem_pool_int8": 0, "s2d_stem_pool_int8_f32": 1,
+                             "maxpool3x3s2_int8": 0}
+    assert np.isfinite(got["waypoints"]).all()
+    np.testing.assert_allclose(got["expert_weights"], want["expert_weights"], atol=0.05)
 
 
 @pytest.mark.parametrize("variant", ["fused", "pool"])
@@ -603,3 +688,38 @@ def test_cached_gating_step_on_cuda_matches_cpu(gen):
         elif v.is_floating_point():
             np.testing.assert_allclose(runs["cuda"][1][k].numpy(), v.numpy(), rtol=1e-3,
                                        atol=1e-5, err_msg=k)
+
+
+def test_eval_cli_bdd_detection_on_cuda_matches_cpu(gen, tmp_path):
+    """`automoe-eval-torch bdd --task detection` on the card against
+    --device cpu (TF32 off): val_loss rtol 1e-4, avg_iou / recall_0.5 atol
+    1e-5, with K2 alone (the exact 'hungarian' match) launched once per
+    batch on the card and never on the CPU. The expert is seed 0 with its
+    box channels moved to pixel boxes inside the image; its matches on
+    these frames survive 3e-5 relative noise (30 draws a batch)."""
+    from automoe_tpu_torch.evals.cli import main
+    from automoe_tpu_torch.ops import auction_kernel as ak
+    from automoe_tpu_torch.tools.synth import synth_carla_detection
+    from automoe_tpu_torch.train.workloads import bdd_expert_workload
+
+    root = synth_carla_detection(tmp_path / "det", n_per_split={"val": 6}, size=64,
+                                 max_boxes=4, seed=0)
+    model = bdd_expert_workload("detection").init_model(0, "cpu")
+    with torch.no_grad():
+        model.head[2].weight[10:] *= 8
+        model.head[2].bias[10:] = torch.tensor([32.0, 32.0, 20.0, 20.0])
+    ckpt = tmp_path / "det.pt"
+    torch.save({"model_state_dict": model.state_dict()}, ckpt)
+    argv = ["bdd", "--task", "detection", "--source", "carla", "--data-root", str(root),
+            "--checkpoint", str(ckpt), "--batch-size", "3", "--num-workers", "1",
+            "--box-cap", "4"]
+    res = {}
+    for device in ("cuda", "cpu"):
+        ak.reset_launch_counts()
+        res[device] = main(argv + ["--device", device, "--out-dir", str(tmp_path / device)])
+        res[device + "_launches"] = ak.LAUNCHES["auction_solve"]
+    assert (res["cuda_launches"], res["cpu_launches"]) == (2, 0)
+    np.testing.assert_allclose(res["cuda"]["val_loss"], res["cpu"]["val_loss"], rtol=1e-4)
+    for k in ("avg_iou", "recall_0.5"):
+        np.testing.assert_allclose(res["cuda"][k], res["cpu"][k], atol=1e-5, err_msg=k)
+    assert res["cpu"]["avg_iou"] > 0

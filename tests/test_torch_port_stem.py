@@ -104,11 +104,14 @@ def test_stem_wrapper_on_cpu_is_the_plain_version():
     xs, w, bias, inv = _stem_inputs(6, True)
     args = (torch.from_numpy(xs).bfloat16(), torch.from_numpy(w.reshape(192, O)).bfloat16(),
             torch.from_numpy(bias), torch.from_numpy(inv))
+    f32 = (args[0].float(), args[1].float(), *args[2:])
     stem.reset_launch_counts()
     assert torch.equal(stem.s2d_stem_pool_int8(*args), stem.s2d_stem_pool_int8_plain(*args))
+    assert torch.equal(stem.s2d_stem_pool_int8(*f32), stem.s2d_stem_pool_int8_plain(*f32))
     xq = torch.randint(0, 128, (1, 8, 8, 32), dtype=torch.int8)
     assert torch.equal(stem.maxpool3x3s2_int8(xq), stem.maxpool3x3s2_int8_plain(xq))
-    assert stem.LAUNCHES == {"s2d_stem_pool_int8": 0, "maxpool3x3s2_int8": 0}
+    assert stem.LAUNCHES == {"s2d_stem_pool_int8": 0, "s2d_stem_pool_int8_f32": 0,
+                             "maxpool3x3s2_int8": 0}
 
 
 @pytest.mark.parametrize("shape", [(2, 32, 32, 128), (1, 128, 128, 256)])
