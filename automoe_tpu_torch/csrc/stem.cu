@@ -80,26 +80,70 @@
 //     reads with the other warpgroup's B reads (both compete for the
 //     SM's 128 bytes per clock).
 //
-// K3 at float32, automoe_stem_s2d_pool_int8_f32: the same function for an
-//     f32 xs [B,Hc+4,Wc+4,12] and w [192,O] (O % 64 == 0), the
-//     instantiation the JAX kernel takes for an f32 input (pallas_stem.py
-//     casts w to xs's dtype and sizes its patch buffer in it). The int8
-//     engine and the eval CLI's `gating --quantize` run it at f32.
-//     Products accumulate in f32 with FFMA on the CUDA cores: TF32 tensor
-//     cores would round the inputs to 10 mantissa bits, which the f32
-//     reference does not. Bound: 1.61 GFLOP per 256x256 image (O = 256)
-//     over the 67 TFLOP/s of f32 outside the tensor cores, 0.19 ms at
-//     B=8 and 0.77 ms at B=32; the bytes (1.9 MB an image) take a
-//     fortieth of that. Design, simple first: a block per 64-channel
-//     group keeps the group's 192 x 64 weights (48 KB) in shared memory
-//     and walks (image, 4x8 pooled tile) items; per item it stages the
-//     12x20-pixel f32 patch, computes the tile's 9x17 conv positions in
-//     rounds of 64 (a thread: 4 positions x 4 channels, the weights read
-//     as float4, so 16 FFMA per 5 shared loads), writes bias + ReLU to an
-//     f32 tile in shared memory, and pools and quantizes from there in the
-//     plain version's order (pool the f32 values, then quantize). Two
-//     blocks an SM (99,840 bytes each). Not yet: a register-blocked
-//     product with more positions a thread, a cp.async double buffer.
+// K3 at float32, automoe_stem_s2d_pool_int8_f32 replaces the same TPU
+//     kernel (pallas_stem.py:103) in the instantiation it takes for an f32
+//     input (pallas_stem.py:231 casts w to xs's dtype, :254 sizes the patch
+//     buffer in it): the same function for an f32 xs [B,Hc+4,Wc+4,12] and
+//     w [192,O] (O % 64 == 0). The int8 engine at f32 (`automoe-serve-torch
+//     --quantize --fp32`) and the eval CLI's `gating --quantize` run it.
+//     Three TF32 passes: each f32 value v is split as hi = rna(v), lo =
+//     rna(v - hi) (cvt.rna.tf32.f32, round to nearest, ties away; the
+//     tensor cores would truncate an unsplit value), and hi*hi + hi*lo +
+//     lo*hi accumulate in f32 on the tensor cores. lo*lo and lo's own
+//     rounding are below f32's 2^-24. Share of int8 outputs off by one
+//     against a float64 conv, K3's inputs at the tests' statistics (an
+//     emulation in PyTorch on the CPU, 4 images of 132x132x12, O = 256):
+//       plain f32 7.2e-6 | one TF32 pass 7.8e-3 | three passes 8.8e-6 |
+//       bf16 split, 3 products 1.1e-4 | bf16 split, 6 products 3.3e-6
+//     One pass misses the port's tolerance (±1 on at most 1e-3 of the
+//     elements), and the bf16 split in 3 products is 12x less exact than
+//     f32, so three TF32 passes. Bound: 3 passes x 2*B*Hc*Wc*192*O over
+//     the 495 TFLOP/s of dense TF32, 0.078 ms at B=8 and 0.312 ms at B=32
+//     (256x256 input, O = 256); the bytes (1.9 MB an image) take 0.018 ms
+//     at B=32.
+//     Design, on K3's (the bf16 kernel's) frame:
+//     - Persistent grid of 256-thread blocks (two warpgroups), one block
+//       per SM, gridDim.y over 64-channel groups (O = 256: four), each
+//       block walking the (image, 8x8 pooled tile) items of its group.
+//     - Resident split weights: w_hi and w_lo of the group (2 x 48 KB),
+//       written once per block, K-major in the 128-byte swizzle (a row of
+//       32 floats is one atom; K = 192 is six atom columns).
+//     - The 20x20x12 f32 patch (19,200 bytes) double-buffered with 16-byte
+//       cp.async (a 48-byte pixel keeps every row 16-byte aligned, so one
+//       copy serves ldmatrix).
+//     - Tensor cores: wgmma.m64n64k8.f32.tf32.tf32, A from registers, B
+//       from the resident weights; per 64-row block 24 k8 slices x 3
+//       passes = 72 products. A is read with ldmatrix.x4 on the b16 view
+//       (row lane/4, word lane%4: the TF32 fragment) and split in
+//       registers, one tap row (6 slices) a commit group, two register
+//       sets in turn (the products read their A registers until they
+//       complete; wait_group 1 frees the older set). The tile's 5 row
+//       blocks go to the warpgroups in turn across tiles (block j of the
+//       block's it-th tile to warpgroup (it + j) & 1), the turns handed
+//       over through named barriers: one warpgroup's epilogue and next A
+//       split run while the other's products do.
+//     - Accuracy of the sum: the tensor cores truncate each sum they
+//       accumulate, an error of the accumulator's size. 72 products into
+//       one accumulator put 5.7e-5 of the int8 outputs off by one against
+//       the plain version (f32 conv) at B=32, five times f32's level. So
+//       each commit group gets a fresh accumulator that the warp adds into
+//       an f32 sum (FADD, round to nearest) once wait_group has seen the
+//       group done, and within a group the small products (lo*hi, hi*lo)
+//       go first, truncated while the accumulator is still 2^-11 of its
+//       final size: 1.0e-5 off, f32's level (FFMA on the CUDA cores:
+//       1.1e-5; tools/bench_stem.py --dtype f32 on an H100).
+//     - Epilogue: bias + ReLU in f32 into a shared f32 C tile (289 x 72
+//       floats); after the tile, the 3x3/s2 max over in-window positions
+//       (taps outside [0,Hc)x[0,Wc) clamp onto the window's edge, which
+//       repeats a value), then clip(rint(max * inv), ±127): the plain
+//       version's order, for any sign of inv.
+//     - Shared memory: 98,304 weights + 38,400 patches + 83,232 C + 1,024
+//       alignment slack = 220,960 bytes.
+//     Not yet: TMA for the patch, a halo shared between neighbouring
+//     tiles, and the pool overlapped with the products (the tensor cores
+//     wait on it; K3 bf16 pools rows as their conv rows land, and a
+//     second C tile does not fit). At 254 registers a thread, a third A
+//     set or a deeper queue of products would spill.
 //
 // K4  automoe_maxpool3x3s2_int8 replaces automoe_tpu/ops/pallas_stem.py
 //     _pool_kernel (launched by maxpool3x3s2_int8): 3x3/s2 SAME max-pool
@@ -157,9 +201,10 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 // keeps the compiler from moving accesses of d across the async products
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // D[64x128] (+)= A[64x16] (registers, the mma.m16n8k16 A layout per warp)
@@ -566,142 +611,312 @@ __global__ void maxpool3x3s2_int8_kernel(const int8_t* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// K3 at float32 (automoe_stem_s2d_pool_int8_f32): FFMA on the CUDA cores.
+// K3 at float32 (automoe_stem_s2d_pool_int8_f32): wgmma TF32, three passes.
 // ---------------------------------------------------------------------------
 
-constexpr int F_TP = 4, F_TQ = 8;                          // pooled tile, rows x cols
-constexpr int F_CR = 2 * F_TP + 1, F_CC = 2 * F_TQ + 1;    // its conv positions, 9 x 17
-constexpr int F_NPOS = F_CR * F_CC;                        // 153
-constexpr int F_PR = F_CR + 3, F_PC = F_CC + 3;            // input patch pixels, 12 x 20
-constexpr int F_OG = 64;                                   // channels per block
-constexpr int F_QUADS = F_OG / 4;                          // 16 channel quads
-constexpr int F_THREADS = 256;
-constexpr int F_LANES = F_THREADS / F_QUADS;               // 16 position lanes
-constexpr int F_PPT = 4;                                   // positions per thread per round
-constexpr int F_ROUND = F_LANES * F_PPT;                   // 64 positions per round
-constexpr int F_W_FLOATS = 192 * F_OG;                     // 49,152 bytes
-constexpr int F_P_FLOATS = F_PR * F_PC * 12;               // 11,520 bytes
-constexpr int F_C_FLOATS = F_NPOS * F_OG;                  // 39,168 bytes
-constexpr int F_SMEM = (F_W_FLOATS + F_P_FLOATS + F_C_FLOATS) * 4;  // 99,840: two blocks an SM
-static_assert(2 * (F_SMEM + 1024) <= 233472, "two blocks must fit an SM's shared memory");
+constexpr int F_OG = 64;                          // channels per block
+constexpr int F_KSTEPS = KDIM / 8;                // 24 k8 slices
+constexpr int F_CHUNK = 6;                        // slices per commit group: one tap row
+constexpr int F_GROUPS = F_KSTEPS / F_CHUNK;      // 4 commit groups per row block
+constexpr int F_PIX = CIN * 4;                    // bytes of an f32 pixel (48)
+constexpr int F_PATCH = PH * PW * F_PIX;          // 19,200
+constexpr int F_COPIES = F_PATCH / 16;            // 16-byte copies per patch (1,200)
+constexpr int F_LDC = F_OG + 8;                   // floats per C row: conflict-free float2 stores
+// split weights, K-major with the 128-byte swizzle: per 32-k atom column,
+// 8 groups of 8 channels x 128 bytes (32 k), 16-byte chunk c of row n at
+// chunk c ^ n; groups 1,024 bytes apart (SBO), atom columns 8 KB apart
+constexpr int F_W_KATOM = F_OG / 8 * W_GROUP;     // 8,192
+constexpr int F_W_BYTES = KDIM / 32 * F_W_KATOM;  // 49,152 for each of w_hi, w_lo
+constexpr int F_WLO = F_W_BYTES;
+constexpr int F_P_OFF = 2 * F_W_BYTES;                      // 98,304
+constexpr int F_C_OFF = F_P_OFF + 2 * F_PATCH;              // 136,704
+constexpr int F_SMEM = F_C_OFF + M_VALID * F_LDC * 4 + 1024;  // 220,960 with the slack
+static_assert(F_P_OFF % 1024 == 0 && F_PATCH % 16 == 0 && F_C_OFF % 16 == 0,
+              "shared regions must stay aligned");
+static_assert(F_SMEM <= 232448, "over the 227 KB a block may use");
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes));
+}
+
+// round to TF32 (10 mantissa bits), to nearest with ties away from zero
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// D[64x64] (+)= A[64x8] (registers, the mma.m16n8k8 TF32 A layout per warp)
+// * B[8x64] (shared memory, through the descriptor); scale_d 0 overwrites D
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %36, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %37, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(desc));
+}
+
+// Copy the f32 patch of xs rows r0..r0+PH, cols c0..c0+PW of one image
+// (pixel (i, j) at byte 48 (i PW + j)), zero-filled outside the image.
+__device__ __forceinline__ void stage_patch_f32(unsigned char* buf, const float* __restrict__ xb,
+                                                int r0, int c0, int Hp, int Wp) {
+  for (int i = threadIdx.x; i < F_COPIES; i += THREADS) {
+    const int pix = i / 3, R = r0 + pix / PW, C = c0 + pix % PW;
+    const bool ok = R >= 0 && R < Hp && C >= 0 && C < Wp;
+    cp_async16(buf + 16 * i, ok ? xb + ((size_t)R * Wp + C) * CIN + (i % 3) * 4 : xb,
+               ok ? 16 : 0);
+  }
+}
+
+// Byte offset (within a patch buffer) of the ldmatrix row that this lane
+// supplies for m16 row tile mt at k slice 0 (the TF32 fragment: lanes 0-15
+// give rows 0-15 at k 0-3, lanes 16-31 the same rows at k 4-7); slice s of
+// tap row a adds a*PW*48 + 32*s. Padding rows read position 0 and are
+// never stored.
+__device__ __forceinline__ int a_row_offset_f32(int mt, int lane) {
+  int m = mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  if (m >= M_VALID) m = 0;
+  return ((m / TC_W) * PW + m % TC_W) * F_PIX + 16 * (lane >> 4);
+}
+
+// The A fragments of commit group c (k8 slices 6c..6c+5, tap row c) of this
+// warp's 16 rows, split: hi = rna(v), lo = rna(v - hi)
+struct ASplit {
+  uint32_t hi[F_CHUNK][4], lo[F_CHUNK][4];
+};
+
+__device__ __forceinline__ void load_a_split(ASplit& a, unsigned row, int c) {
+#pragma unroll
+  for (int s = 0; s < F_CHUNK; ++s) {
+    const int kk = c * F_CHUNK + s;  // tap row kk / 6, its slice kk % 6
+    uint32_t v[4];
+    ldmatrix_x4(v, row + (kk / 6) * PW * F_PIX + 32 * (kk % 6));
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      a.hi[s][r] = tf32_rna(__uint_as_float(v[r]));
+      a.lo[s][r] = tf32_rna(__uint_as_float(v[r]) - __uint_as_float(a.hi[s][r]));
+    }
+  }
+}
+
+// One commit group into a fresh accumulator (part, overwritten by the
+// group's first product) that the caller adds into an f32 sum once the
+// group is done: the tensor cores truncate each sum they accumulate, so a
+// partial of few products keeps that error at the partial's size, and the
+// small products (lo*w_hi, hi*w_lo) go first, truncated while part is
+// still 2^-11 of its final size; then the group's hi*w_hi.
+__device__ __forceinline__ uint64_t w_off(int c, int s) {
+  const int kk = c * F_CHUNK + s;
+  return (uint64_t)(((kk / 4) * F_W_KATOM + (kk % 4) * 32) >> 4);
+}
+
+__device__ __forceinline__ void issue_group(float (&part)[32], const ASplit& a,
+                                            uint64_t desc_hi, uint64_t desc_lo, int c) {
+  fence_acc(part);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < F_CHUNK; ++s) {
+    wgmma_m64n64k8_tf32(part, a.lo[s], desc_hi + w_off(c, s), s);
+    wgmma_m64n64k8_tf32(part, a.hi[s], desc_lo + w_off(c, s), 1);
+  }
+#pragma unroll
+  for (int s = 0; s < F_CHUNK; ++s) wgmma_m64n64k8_tf32(part, a.hi[s], desc_hi + w_off(c, s), 1);
+  wgmma_commit();
+}
+
+// sum += part, once part's commit group is done
+__device__ __forceinline__ void add_part(float (&sum)[32], float (&part)[32]) {
+  fence_acc(part);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sum[i] += part[i];
+}
+
+// Bias and ReLU in f32 into the C tile. Thread (g, t) of warp wq holds
+// rows 16 wq + g (+8) of row block j and channels 8i + 2t (+1); rows past
+// M_VALID are not stored.
+__device__ __forceinline__ void epilogue_f32(const float (&d)[32], float* Cs,
+                                             const float2 (&bq)[8], int j, int wq, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = j * 64 + wq * 16 + g + 8 * h;
+    if (m >= M_VALID) continue;
+    float* row = Cs + m * F_LDC + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      *reinterpret_cast<float2*>(row + 8 * i) =
+          make_float2(fmaxf(d[4 * i + 2 * h] + bq[i].x, 0.0f),
+                      fmaxf(d[4 * i + 2 * h + 1] + bq[i].y, 0.0f));
+  }
+}
 
 __device__ __forceinline__ signed char quant_f32(float v) {
   return static_cast<signed char>(fminf(fmaxf(rintf(v), -127.0f), 127.0f));
 }
 
-// One block: one channel group of 64 (blockIdx.y) and, in a stride loop,
-// (image, 4x8 pooled tile) items. The group's weights stay in shared
-// memory for the block's life; per item the 12x20x12 input patch is
-// staged, the 153 conv positions are computed in rounds of 64 (thread:
-// 4 positions x 4 channels, 16 accumulators, k in w's row order
-// a*48 + b*12 + c), bias + ReLU go to an f32 tile in shared memory, and
-// the 3x3/s2 max of in-window conv positions is quantized, as the plain
-// version does it: clip(rint(max * inv), +-127), for any sign of inv.
-__global__ void __launch_bounds__(F_THREADS, 2)
+__global__ void __launch_bounds__(THREADS, 1)
 s2d_stem_pool_int8_f32_kernel(const float* __restrict__ xs, const float* __restrict__ w,
-                              const float* __restrict__ bias,
-                              const float* __restrict__ inv, int8_t* __restrict__ out,
-                              int B, int Hp, int Wp, int O, int Ho, int Wo, int tiles_w,
-                              long long items) {
-  extern __shared__ float4 smem_f32[];
-  float* Ws = reinterpret_cast<float*>(smem_f32);
-  float* Ps = Ws + F_W_FLOATS;
-  float* Cs = Ps + F_P_FLOATS;
-  const int tid = threadIdx.x;
-  const int quad = tid % F_QUADS, lane = tid / F_QUADS;
-  const int o0 = blockIdx.y * F_OG;
-  const int Hc = Hp - 4, Wc = Wp - 4;
-  for (int i = tid; i < F_W_FLOATS / 4; i += F_THREADS) {
-    const int k = i / F_QUADS, c4 = i % F_QUADS;
-    smem_f32[i] = *reinterpret_cast<const float4*>(w + (size_t)k * O + o0 + 4 * c4);
-  }
-  const float4 bq = *reinterpret_cast<const float4*>(bias + o0 + 4 * quad);
-  const int tiles = ((Ho + F_TP - 1) / F_TP) * tiles_w;
+                              const float* __restrict__ bias, const float* __restrict__ inv,
+                              int8_t* __restrict__ out, int B, int Hp, int Wp, int O, int Ho,
+                              int Wo) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // the swizzled weights need a 1,024-byte aligned base
+  const unsigned raw_addr = static_cast<unsigned>(__cvta_generic_to_shared(smem_raw));
+  unsigned char* smem = smem_raw + ((1024 - (raw_addr & 1023)) & 1023);
+  float* Cs = reinterpret_cast<float*>(smem + F_C_OFF);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wq = warp & 3;  // warpgroup, warp in it
 
-  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
-    const int b = (int)(item / tiles), t = (int)(item % tiles);
-    const int p0 = (t / tiles_w) * F_TP, q0 = (t % tiles_w) * F_TQ;
-    const int r0 = 2 * p0 - 1, c0 = 2 * q0 - 1;  // the tile's first conv position
-    __syncthreads();  // the previous item is done with Ps and Cs (and Ws is written)
-    // conv position (r, c) reads xs pixels (r + a, c + b): patch pixel (i, j)
-    // is xs (r0 + i, c0 + j), zero outside the image
-    for (int i = tid; i < F_PR * F_PC * 3; i += F_THREADS) {
-      const int pix = i / 3, part = i % 3;
-      const int rr = r0 + pix / F_PC, cc = c0 + pix % F_PC;
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (rr >= 0 && rr < Hp && cc >= 0 && cc < Wp)
-        v = *reinterpret_cast<const float4*>(xs + (((size_t)b * Hp + rr) * Wp + cc) * 12 +
-                                             4 * part);
-      reinterpret_cast<float4*>(Ps)[i] = v;
-    }
-    __syncthreads();
-    for (int base = 0; base < F_NPOS; base += F_ROUND) {
-      int off[F_PPT];
+  const int Hc = Hp - 4, Wc = Wp - 4;
+  const int tiles_h = (Ho + TP_H - 1) / TP_H, tiles_w = (Wo + TP_W - 1) / TP_W;
+  const int per_image = tiles_h * tiles_w, items = B * per_image;
+  const int o0 = blockIdx.y * F_OG;  // this block's channel group
+
+  auto tile_origin = [&](int item, int& b, int& p0, int& q0) {
+    b = item / per_image;
+    const int tl = item % per_image;
+    p0 = (tl / tiles_w) * TP_H;
+    q0 = (tl % tiles_w) * TP_W;
+  };
+  auto stage = [&](int item, int buf) {
+    int b, p0, q0;
+    tile_origin(item, b, p0, q0);
+    stage_patch_f32(smem + F_P_OFF + buf * F_PATCH, xs + (size_t)b * Hp * Wp * CIN,
+                    2 * p0 - 1, 2 * q0 - 1, Hp, Wp);
+  };
+
+  int item = blockIdx.x;
+  stage(item, 0);  // the first patch flies while the weights are split
+  cp_async_commit();
+  // w_hi and w_lo, once per block: element (k, n) at atom column k / 32,
+  // group n / 8, row n % 8, chunk (k % 32) / 4 swizzled by the row
+  for (int i = tid; i < KDIM * F_OG; i += THREADS) {
+    const int k = i / F_OG, n = i % F_OG, kk = k % 32;
+    const float v = w[(size_t)k * O + o0 + n];
+    const uint32_t hi = tf32_rna(v);
+    const int off = (k / 32) * F_W_KATOM + (n / 8) * W_GROUP + (n % 8) * 128 +
+                    (((kk / 4) ^ (n % 8)) << 4) + (kk % 4) * 4;
+    *reinterpret_cast<uint32_t*>(smem + off) = hi;
+    *reinterpret_cast<uint32_t*>(smem + F_WLO + off) = tf32_rna(v - __uint_as_float(hi));
+  }
+  // the weights are read by wgmma (async proxy) after generic stores
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+
+  // descriptors: start >> 4, LBO 1 (unused when swizzled), SBO 1024 >> 4,
+  // layout 1 = 128-byte swizzle
+  const unsigned w_addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const uint64_t desc_hi = (uint64_t)((w_addr >> 4) & 0x3FFF) | (1ull << 16) |
+                           ((uint64_t)(W_GROUP >> 4) << 32) | (1ull << 62);
+  const uint64_t desc_lo = desc_hi + (F_WLO >> 4);
+  const unsigned p_base = static_cast<unsigned>(__cvta_generic_to_shared(smem + F_P_OFF));
+
+  float2 bq[8];  // the epilogue's bias of this thread's 16 channels
 #pragma unroll
-      for (int i = 0; i < F_PPT; ++i) {
-        const int pos = min(base + i * F_LANES + lane, F_NPOS - 1);  // past the end: not stored
-        off[i] = ((pos / F_CC) * F_PC + pos % F_CC) * 12;
-      }
-      float acc[F_PPT][4];
+  for (int i = 0; i < 8; ++i)
+    bq[i] = make_float2(bias[o0 + 8 * i + 2 * (lane & 3)], bias[o0 + 8 * i + 2 * (lane & 3) + 1]);
+  const int quad = tid & 15;  // the pool's 4 channels, the same in every round
+  const float4 iq = *reinterpret_cast<const float4*>(inv + o0 + 4 * quad);
+
+  if (wg == 1) named_arrive(1, 256);  // warpgroup 0 takes the first turn
+  int it = 0;
+  for (; item < items; item += gridDim.x, ++it) {
+    const int buf = it & 1;
+    cp_async_wait_all();
+    __syncthreads();  // this patch landed; the last tile's pool is done with C
+    // the next tile's patch flies while this one computes
+    if (item + (int)gridDim.x < items) stage(item + gridDim.x, buf ^ 1);
+    cp_async_commit();
+    const unsigned patch = p_base + buf * F_PATCH;
+
+    // row block j of this tile is warpgroup (it + j) & 1's turn: the turns
+    // alternate (named barriers 1 and 2) across the 5 blocks and the tiles
+#pragma unroll 1
+    for (int j = ((it & 1) ^ wg); j < M_BLOCKS; j += 2) {
+      const unsigned row = patch + a_row_offset_f32(j * 4 + wq, lane);
+      // commit groups alternate between two register sets and two partial
+      // sums (x, pa for even groups; y, pb for odd ones); once wait_group 1
+      // has seen group c - 2 done, its partial joins the f32 sum and its
+      // registers take group c
+      ASplit x, y;
+      float pa[32], pb[32], sum[32];
 #pragma unroll
-      for (int i = 0; i < F_PPT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+      for (int i = 0; i < 32; ++i) sum[i] = 0.0f;
+      load_a_split(x, row, 0);
+      named_sync(1 + wg, 256);
+      issue_group(pa, x, desc_hi, desc_lo, 0);
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
-          const float* xp = Ps + (a * F_PC + bb) * 12;
-          const float* wp = Ws + (a * 4 + bb) * 12 * F_OG + 4 * quad;
-#pragma unroll
-          for (int ch = 0; ch < 12; ++ch) {
-            const float4 wv = *reinterpret_cast<const float4*>(wp + ch * F_OG);
-#pragma unroll
-            for (int i = 0; i < F_PPT; ++i) {
-              const float x = xp[off[i] + ch];
-              acc[i][0] = fmaf(x, wv.x, acc[i][0]);
-              acc[i][1] = fmaf(x, wv.y, acc[i][1]);
-              acc[i][2] = fmaf(x, wv.z, acc[i][2]);
-              acc[i][3] = fmaf(x, wv.w, acc[i][3]);
-            }
-          }
+      for (int c = 1; c < F_GROUPS; ++c) {
+        if (c >= 2) wgmma_wait<1>();
+        if (c & 1) {
+          if (c >= 2) add_part(sum, pb);
+          load_a_split(y, row, c);
+          issue_group(pb, y, desc_hi, desc_lo, c);
+        } else {
+          add_part(sum, pa);
+          load_a_split(x, row, c);
+          issue_group(pa, x, desc_hi, desc_lo, c);
         }
       }
-#pragma unroll
-      for (int i = 0; i < F_PPT; ++i) {
-        const int pos = base + i * F_LANES + lane;
-        if (pos < F_NPOS)
-          reinterpret_cast<float4*>(Cs)[pos * F_QUADS + quad] =
-              make_float4(fmaxf(acc[i][0] + bq.x, 0.0f), fmaxf(acc[i][1] + bq.y, 0.0f),
-                          fmaxf(acc[i][2] + bq.z, 0.0f), fmaxf(acc[i][3] + bq.w, 0.0f));
-      }
+      named_arrive(1 + (wg ^ 1), 256);
+      wgmma_wait<0>();
+      add_part(sum, pa);
+      add_part(sum, pb);
+      epilogue_f32(sum, Cs, bq, j, wq, lane);
     }
-    __syncthreads();
-    // 3x3/s2 SAME max over the conv positions inside [0,Hc)x[0,Wc) (the
-    // centre always is), then quantize; 4 channels a thread, one 4-byte store
-    for (int i = tid; i < F_TP * F_TQ * F_QUADS; i += F_THREADS) {
-      const int qd = i % F_QUADS, pp = i / F_QUADS;
-      const int p = p0 + pp / F_TQ, q = q0 + pp % F_TQ;
+    __syncthreads();  // C holds the tile's 289 conv positions
+
+    // 3x3/s2 max over the in-window conv positions (a tap outside
+    // [0,Hc)x[0,Wc) clamps onto the window's edge and repeats a value),
+    // then clip(rint(max * inv), ±127); 4 channels a thread, 4 pooled
+    // positions a thread
+    int b, p0, q0;
+    tile_origin(item, b, p0, q0);
+    for (int i = tid; i < TP_H * TP_W * (F_OG / 4); i += THREADS) {
+      const int pl = i / (F_OG / 4), p = p0 + pl / TP_W, q = q0 + pl % TP_W;
       if (p >= Ho || q >= Wo) continue;
-      const float4* C4 = reinterpret_cast<const float4*>(Cs);
-      float4 m = C4[((2 * (p - p0) + 1) * F_CC + 2 * (q - q0) + 1) * F_QUADS + qd];
-      for (int dr = 0; dr < 3; ++dr) {
-        const int r = 2 * p - 1 + dr;
-        if (r < 0 || r >= Hc) continue;
-        for (int dc = 0; dc < 3; ++dc) {
-          const int c = 2 * q - 1 + dc;
-          if (c < 0 || c >= Wc) continue;
-          const float4 v = C4[((r - r0) * F_CC + (c - c0)) * F_QUADS + qd];
-          m = make_float4(fmaxf(m.x, v.x), fmaxf(m.y, v.y), fmaxf(m.z, v.z), fmaxf(m.w, v.w));
-        }
+      int rows[3], cols[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        rows[k] = (min(max(2 * p - 1 + k, 0), Hc - 1) - (2 * p0 - 1)) * TC_W;
+        cols[k] = min(max(2 * q - 1 + k, 0), Wc - 1) - (2 * q0 - 1);
       }
-      const float4 iv = *reinterpret_cast<const float4*>(inv + o0 + 4 * qd);
+      float4 m = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // every value is >= 0
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(Cs + (rows[k / 3] + cols[k % 3]) * F_LDC + 4 * quad);
+        m = make_float4(fmaxf(m.x, v.x), fmaxf(m.y, v.y), fmaxf(m.z, v.z), fmaxf(m.w, v.w));
+      }
       char4 res;
-      res.x = quant_f32(m.x * iv.x);
-      res.y = quant_f32(m.y * iv.y);
-      res.z = quant_f32(m.z * iv.z);
-      res.w = quant_f32(m.w * iv.w);
-      *reinterpret_cast<char4*>(out + (((size_t)b * Ho + p) * Wo + q) * O + o0 + 4 * qd) = res;
+      res.x = quant_f32(m.x * iq.x);
+      res.y = quant_f32(m.y * iq.y);
+      res.z = quant_f32(m.z * iq.z);
+      res.w = quant_f32(m.w * iq.w);
+      *reinterpret_cast<char4*>(out + (((size_t)b * Ho + p) * Wo + q) * O + o0 + 4 * quad) = res;
     }
   }
+  // the last turn's hand-over: 5 * it turns, the last by warpgroup (it - 1) & 1
+  if (wg == (it & 1)) named_sync(1 + wg, 256);
+  cp_async_wait_all();
 }
 
 }  // namespace
@@ -766,17 +981,17 @@ extern "C" int automoe_stem_s2d_pool_int8_f32(const void* xs, const void* w,
     if (e != cudaSuccess) return (int)e;
     sm_count[dev] = n;
   }
-  const int tiles_w = (Wo + F_TQ - 1) / F_TQ;
-  const long long items = (long long)B * ((Ho + F_TP - 1) / F_TP) * tiles_w;
+  const long long items =
+      (long long)B * ((Ho + TP_H - 1) / TP_H) * ((Wo + TP_W - 1) / TP_W);
   const int groups = O / F_OG;
-  if (groups > 65535) return (int)cudaErrorInvalidValue;
-  // two resident blocks an SM, shared out between the channel groups
-  const int per_group = 2 * sm_count[dev] / groups > 0 ? 2 * sm_count[dev] / groups : 1;
+  if (items > 0x7fffffffLL || groups > 65535) return (int)cudaErrorInvalidValue;
+  // one resident block an SM, shared out between the channel groups
+  const int per_group = sm_count[dev] / groups > 0 ? sm_count[dev] / groups : 1;
   const dim3 grid((unsigned)(items < per_group ? items : per_group), groups);
-  s2d_stem_pool_int8_f32_kernel<<<grid, F_THREADS, F_SMEM, (cudaStream_t)stream>>>(
+  s2d_stem_pool_int8_f32_kernel<<<grid, THREADS, F_SMEM, (cudaStream_t)stream>>>(
       static_cast<const float*>(xs), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<const float*>(inv),
-      static_cast<int8_t*>(out), B, Hp, Wp, O, Ho, Wo, tiles_w, items);
+      static_cast<int8_t*>(out), B, Hp, Wp, O, Ho, Wo);
   return (int)cudaGetLastError();
 }
 

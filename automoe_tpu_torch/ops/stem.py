@@ -3,8 +3,9 @@
 K3 `s2d_stem_pool_int8`: the s2d stem conv of all experts + bias + ReLU +
 per-channel int8 quantize + 3x3/s2 max-pool, writing only the pooled int8
 tensor (port of automoe_tpu/ops/pallas_stem.py::_stem_kernel), for a bf16
-input (tensor-core kernel) or an f32 one (the kernel's f32 instantiation,
-FFMA on the CUDA cores), as the JAX kernel takes either.
+input or an f32 one (both on the tensor cores; the f32 kernel splits each
+value into two TF32 parts and takes three passes, f32-accurate), as the
+JAX kernel takes either.
 K4 `maxpool3x3s2_int8`: the int8 3x3/s2 SAME max-pool alone (port of
 pallas_stem.py::_pool_kernel).
 

@@ -161,6 +161,21 @@ def test_stem_kernel_f32_matches_plain(gen, B, H, W, O, mixed_sign):
         assert (out[..., 7] == 0).all()
 
 
+@pytest.mark.parametrize("mixed_sign", [False, True], ids=["positive", "mixed-sign"])
+def test_stem_kernel_f32_holds_f32_accuracy(gen, mixed_sign):
+    """K3's f32 kernel runs on the tensor cores in three TF32 passes (each
+    value split as hi + lo): at B=32, 256x256, O=256 its int8 outputs are
+    within ±1 of the plain version's (an f32 conv, TF32 off) on at most
+    5e-5 of the elements, f32's level (one TF32 pass misses by ~8e-3)."""
+    from automoe_tpu_torch.ops import stem
+
+    xs, w, bias, inv = _stem_inputs_f32(gen, 32, 256, 256, 256, mixed_sign)
+    out = stem.s2d_stem_pool_int8(xs, w, bias, inv)
+    torch.cuda.synchronize()
+    d = (out.int() - stem.s2d_stem_pool_int8_plain(xs, w, bias, inv).int()).abs()
+    assert d.max() <= 1 and (d > 0).float().mean() <= 5e-5
+
+
 def test_stem_kernel_f32_is_deterministic(gen):
     from automoe_tpu_torch.ops import stem
 

@@ -114,6 +114,53 @@ def test_stem_wrapper_on_cpu_is_the_plain_version():
                              "maxpool3x3s2_int8": 0}
 
 
+def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 does for finite values: add half of the
+    13 dropped bits to the magnitude's bits, then clear them."""
+    return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_three_tf32_passes_keep_f32_accuracy():
+    """The split that K3's f32 kernel makes on the tensor cores, emulated in
+    f32 on the CPU: v = hi + lo with hi = rna(v), lo = rna(v - hi), and the
+    conv as hi*hi + (lo*hi + hi*lo). At B=2, a 128x128 input, O = 128 and
+    the inputs' statistics of the card's tests, three passes give the
+    plain version's int8 output within ±1 on at most 5e-5 of the elements;
+    one pass (hi*hi alone, the tensor cores' own TF32) misses the 1e-3 that
+    the kernels are held to, which is why the kernel takes three."""
+    import torch.nn.functional as F
+
+    from automoe_tpu_torch.ops.stem import quantize_int8, s2d_stem_pool_int8_plain
+
+    rng = np.random.default_rng(13)
+    B, H, O = 2, 128, 128
+    xs = torch.from_numpy(rng.standard_normal((B, H // 2 + 4, H // 2 + 4, 12)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((192, O)) * 0.05).astype(np.float32))
+    bias = torch.from_numpy((rng.standard_normal(O) * 0.1).astype(np.float32))
+    inv = torch.from_numpy((127.0 / (rng.random(O) * 4 + 1)).astype(np.float32))
+
+    def conv(x, k):
+        k = k.reshape(4, 4, 12, O).permute(3, 2, 0, 1)
+        return F.conv2d(x.permute(0, 3, 1, 2), k)[:, :, : H // 2, : H // 2]
+
+    def finish(h):
+        pooled = F.max_pool2d(torch.relu(h + bias[:, None, None]), 3, 2, 1)
+        return quantize_int8(pooled, inv[:, None, None]).permute(0, 2, 3, 1)
+
+    x_hi, w_hi = _tf32_rna(xs), _tf32_rna(w)
+    x_lo, w_lo = _tf32_rna(xs - x_hi), _tf32_rna(w - w_hi)
+    assert (x_hi.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert ((xs - x_hi - x_lo).abs() <= xs.abs() * 2.0 ** -22).all()
+    ref = s2d_stem_pool_int8_plain(xs, w, bias, inv)
+    three = finish(conv(x_hi, w_hi) + (conv(x_lo, w_hi) + conv(x_hi, w_lo)))
+    one = finish(conv(x_hi, w_hi))
+    assert three.shape == one.shape == ref.shape == (B, 32, 32, O)
+    _assert_one_quantum(three.numpy(), ref.numpy(), frac=5e-5)
+    d = (one.int() - ref.int()).abs()
+    assert (d > 0).float().mean() > 1e-3
+
+
 @pytest.mark.parametrize("shape", [(2, 32, 32, 128), (1, 128, 128, 256)])
 def test_plain_pool_matches_pallas_exactly(shape):
     from automoe_tpu_torch.ops.stem import maxpool3x3s2_int8_plain

@@ -1,6 +1,7 @@
 """The port's kernel bench tools (automoe_tpu_torch/tools/bench_stem.py,
 bench_auction.py), on the CPU: their reading of nvcc's `-Xptxas -v`
-report and of an auction source's entry point."""
+report, of a `cuobjdump -sass` listing and of an auction source's entry
+point."""
 from __future__ import annotations
 
 from pathlib import Path
@@ -8,7 +9,7 @@ from pathlib import Path
 import pytest
 
 from automoe_tpu_torch.tools.bench_auction import has_escalate
-from automoe_tpu_torch.tools.bench_stem import ptxas_usage
+from automoe_tpu_torch.tools.bench_stem import count_sass, ptxas_usage
 
 LOG = """\
 ptxas info    : 0 bytes gmem
@@ -70,3 +71,48 @@ def test_has_escalate_reads_the_entry_point(tmp_path):
     (tmp_path / "none.cu").write_text("int f() { return 0; }\n")
     with pytest.raises(ValueError, match="no automoe_auction_solve"):
         has_escalate(tmp_path / "none.cu")
+
+
+# two kernels of one library as cuobjdump -sass lists them; the f32 one's
+# name contains the other's only with "_f32" inside it
+SASS = """\
+
+Fatbin elf code:
+================
+arch = sm_90a
+code version = [1,7]
+host = linux
+compile_size = 64bit
+
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_129s2d_stem_pool_int8_f32_kernelEPKfS1_S1_S1_Paiiiiii
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   HGMMA.64x64x8.F32.TF32 R24, R88, gdesc[UR4], RZ, !UPT ;
+        /*0020*/                   HGMMA.64x64x8.F32.TF32 R24, R92, gdesc[UR8], R24 ;
+        /*0030*/                   HGMMA.64x64x8.F32.TF32 R24, R96, gdesc[UR4], R24, gsb0 ;
+        /*0040*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+\t\t..........
+
+
+\t\tFunction : _ZN12_GLOBAL__N_125s2d_stem_pool_int8_kernelEPK13__nv_bfloat16S2_PKfS4_Paiiiiii
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   HGMMA.64x128x16.F32.BF16 R24, R88, gdesc[UR4], R24 ;
+        /*0010*/                   FFMA R2, R3, R4, R2 ;
+\t\t..........
+"""
+
+
+@pytest.mark.parametrize("kernel,opcode,want", [
+    ("s2d_stem_pool_int8_f32_kernel", "HGMMA", 3),
+    ("s2d_stem_pool_int8_kernel", "HGMMA", 1),
+    ("s2d_stem_pool_int8_kernel", "FFMA", 1),
+    ("s2d_stem_pool_int8_f32_kernel", "FFMA", 0),
+], ids=["f32-hgmma", "bf16-hgmma", "bf16-ffma", "f32-ffma"])
+def test_count_sass_counts_in_the_named_kernel(kernel, opcode, want):
+    assert count_sass(SASS, kernel, opcode) == want
+
+
+def test_count_sass_raises_without_the_kernel():
+    with pytest.raises(ValueError, match="no SASS"):
+        count_sass(SASS, "maxpool3x3s2_int8_kernel")
