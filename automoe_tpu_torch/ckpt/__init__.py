@@ -1,5 +1,6 @@
 from automoe_tpu_torch.ckpt.from_jax import (  # noqa: F401
     expert_state_dict_from_jax,
+    gating_state_dict_from_jax,
     load_torch_state_dict,
     policy_state_dict_from_jax,
     state_dict_from_jax,

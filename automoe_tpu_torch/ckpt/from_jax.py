@@ -150,22 +150,31 @@ def state_dict_from_jax(variables_np: Dict[str, Any], config) -> Dict[str, torch
     sink.linear(f"context_extractor.{seq}.3", cp["fc2"])
     sink.norm(f"context_extractor.{seq}.4", cp["ln"])
 
-    gp = params["gating_network"]
-    sink.linear("gating_network.context_encoder.context_encoder.0",
-                gp["context_encoder"]["fc1"])
-    sink.linear("gating_network.context_encoder.context_encoder.3",
-                gp["context_encoder"]["fc2"])
-    for i in range(len(cfg.experts)):
+    _gating(sink, "gating_network.", params["gating_network"], len(cfg.experts))
+    _policy(sink, "policy_head.", params["policy_head"], stats.get("policy_head", {}))
+    return sink.out
+
+
+def _gating(sink: _Sink, prefix: str, gp: Dict, num_experts: int):
+    sink.linear(f"{prefix}context_encoder.context_encoder.0", gp["context_encoder"]["fc1"])
+    sink.linear(f"{prefix}context_encoder.context_encoder.3", gp["context_encoder"]["fc2"])
+    for i in range(num_experts):
         pp = gp[f"expert_processor_{i}"]
-        base = f"gating_network.expert_processors.{i}.processor"
+        base = f"{prefix}expert_processors.{i}.processor"
         sink.linear(f"{base}.0", pp["fc1"])
         sink.linear(f"{base}.3", pp["fc2"])
         sink.norm(f"{base}.4", pp["ln"])
-    sink.linear("gating_network.gate_network.0", gp["gate_fc1"])
-    sink.linear("gating_network.gate_network.3", gp["gate_fc2"])
-    sink.linear("gating_network.output_projection", gp["output_projection"])
+    sink.linear(f"{prefix}gate_network.0", gp["gate_fc1"])
+    sink.linear(f"{prefix}gate_network.3", gp["gate_fc2"])
+    sink.linear(f"{prefix}output_projection", gp["output_projection"])
 
-    _policy(sink, "policy_head.", params["policy_head"], stats.get("policy_head", {}))
+
+def gating_state_dict_from_jax(params: Dict[str, Any], num_experts: int
+                               ) -> Dict[str, torch.Tensor]:
+    """A standalone JAX GatingNetwork's params (numpy leaves) → the port's
+    GatingNetwork state dict."""
+    sink = _Sink()
+    _gating(sink, "", params, num_experts)
     return sink.out
 
 

@@ -120,6 +120,12 @@ class InferenceEngine:
         return {k: out[k].float() for k in ("waypoints", "speed", "speed_seq",
                                             "expert_weights")}
 
+    def warmup(self) -> None:
+        """One B=1 zero frame through `infer`, then wait for the device."""
+        self.infer(np.zeros((1, *self.camera_hw, 3), np.uint8), 0.0)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def infer(self, frame_u8: np.ndarray, last_speed_kmh: float) -> Dict[str, np.ndarray]:
         """frame_u8 [H,W,3] or [1,H,W,3] uint8 → host numpy outputs."""
         if frame_u8.ndim == 3:

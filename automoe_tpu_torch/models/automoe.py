@@ -78,6 +78,20 @@ def simple_context(batch: Dict[str, torch.Tensor], B: int, dtype, device):
     ]
 
 
+def full_context_data(batch: Dict[str, Any], B: int, dtype, device) -> Dict[str, Any]:
+    """The `context_data` dict of the 'full' extractor, as the JAX model
+    builds it: speed and each control the last step as [B,1] when present
+    (each on its own), zeros otherwise; `hour`, `minute` and the `weather`
+    and `road` dicts as the batch gives them."""
+    zeros = torch.zeros((B, 1), dtype=dtype, device=device)
+    data = {k: _last_step(batch[k]).to(dtype) if k in batch else zeros for k in _SIMPLE_KEYS}
+    data.update(hour=batch.get("hour", zeros).to(dtype),
+                minute=batch.get("minute", zeros).to(dtype))
+    for k in ("weather", "road"):
+        data[k] = {n: v.to(dtype) for n, v in (batch.get(k) or {}).items()}
+    return data
+
+
 def lidar_or_zeros(batch: Dict[str, torch.Tensor], B: int, dtype, device) -> torch.Tensor:
     """The batch's [B,P,3] points, or 1000 zero points per frame when it
     has none (camera-only serving), as the JAX model feeds a LiDAR
@@ -139,10 +153,21 @@ class AutoMoE(nn.Module):
             feats.append(ext(out, pool_uv=uv))
         return feats
 
+    def context_features(self, batch: Dict[str, Any], B: int, dtype, device) -> torch.Tensor:
+        """The batch's context through the context extractor ('simple':
+        `simple_context`; 'full': `full_context_data`)."""
+        if self.config.context.type == "simple":
+            return self.context_extractor(*simple_context(batch, B, dtype, device))
+        return self.context_extractor(full_context_data(batch, B, dtype, device))
+
     def head_outputs(self, image: torch.Tensor, expert_features: List[torch.Tensor],
-                     context_features: torch.Tensor) -> Dict[str, Any]:
-        """Gating + policy over the extractor features; `image` is NCHW."""
-        gating_output = self.gating_network(expert_features, context_features)
+                     context_features: torch.Tensor, *,
+                     generator: Optional[torch.Generator] = None,
+                     noise: bool = True) -> Dict[str, Any]:
+        """Gating + policy over the extractor features; `image` is NCHW.
+        generator and noise go to the gating network's routing."""
+        gating_output = self.gating_network(expert_features, context_features,
+                                            generator=generator, noise=noise)
         policy_output = self.policy_head(image, gating_output["combined_output"])
         speed_seq = policy_output["speed"]
         return {
@@ -156,7 +181,8 @@ class AutoMoE(nn.Module):
         }
 
     def forward(self, batch: Dict[str, torch.Tensor], *, experts_eval: bool = False,
-                cached_pooled: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, Any]:
+                cached_pooled: Optional[Sequence[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """experts_eval: the (frozen) experts run in eval mode — BatchNorm
         on running statistics, which stay put, and the nuScenes expert's
         dropout off — while the rest of the model keeps its own mode (the
@@ -164,15 +190,15 @@ class AutoMoE(nn.Module):
         cached_pooled: per-expert pooled extractor inputs
         (`automoe_pooled_features`, train/feature_cache.py); the expert
         trunks are skipped and the extractor heads consume these, so
-        `expert_outputs` is empty. Equivalent to experts_eval."""
+        `expert_outputs` is empty. Equivalent to experts_eval.
+        generator: the source of the routing noise, which top-k routing
+        with noise_scale > 0 needs (`GatingNetwork._route`)."""
         image = batch["image"]
         if image.ndim != 4 or image.shape[-1] != 3:
             raise ValueError(f"expected NHWC image [B,H,W,3], got {tuple(image.shape)}")
         image = image.permute(0, 3, 1, 2)  # NHWC → NCHW, once
         B = image.shape[0]
-        context_features = self.context_extractor(
-            *simple_context(batch, B, image.dtype, image.device)
-        )
+        context_features = self.context_features(batch, B, image.dtype, image.device)
         if cached_pooled is not None:
             expert_outputs = []
             features = [ext(None, pooled=p) for ext, p in
@@ -185,7 +211,7 @@ class AutoMoE(nn.Module):
                     for ecfg, expert in zip(self.config.experts, self.experts)
                 ]
             features = self.extractor_features(expert_outputs, image.shape[2:])
-        out = self.head_outputs(image, features, context_features)
+        out = self.head_outputs(image, features, context_features, generator=generator)
         out["expert_outputs"] = expert_outputs
         return out
 
@@ -229,6 +255,25 @@ def automoe_pooled_features(model: AutoMoE, batch: Dict[str, torch.Tensor]
                 p = pool_uv_mean(low, model._pool_uv(low, hw))
             pooled.append(p.float())
     return pooled
+
+
+@torch.no_grad()
+def automoe_context_weights(model: AutoMoE, batch: Dict[str, Any]) -> torch.Tensor:
+    """Expert weights from the context alone, without running the experts
+    (the reference's AutoMoE.get_expert_weights: zero PROCESSED features
+    past the expert processors), for 'simple' and 'full' context, in eval
+    mode with noise-free routing. Analysis only.
+
+    The controls are read as `AutoMoE.forward` reads them. (The JAX
+    package's automoe_context_weights reads each control of a 'simple'
+    batch on its own, unlike its model's forward, which takes them only
+    when all four are present.)"""
+    speed = batch["speed"]
+    B = speed.shape[0]
+    dtype = next(model.context_extractor.parameters()).dtype
+    with eval_mode(model):
+        ctx = model.context_features(batch, B, dtype, speed.device)
+        return model.gating_network.context_only_weights(ctx)  # no generator: noise-free
 
 
 @torch.no_grad()

@@ -11,6 +11,7 @@ from automoe_tpu_torch.serving.quant import (  # noqa: F401
     quantize_automoe,
     quantize_folded,
     resnet_float_forward,
+    resnet_quant_forward,
     resnet_quant_forward_q8,
     stems_s2d_q8,
 )

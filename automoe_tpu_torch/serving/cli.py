@@ -20,31 +20,38 @@ from pathlib import Path
 from typing import Optional, Sequence
 
 
-def build_engine(args):
-    import torch
-
+def load_engine(model_config, checkpoint: Optional[str], ema: bool, **kw):
+    """The engine of the entry points' --model-config, --checkpoint and
+    --ema: a reference `.pth` or a checkpoint written by
+    `automoe-train-torch`; --ema needs the latter. `kw` goes to
+    InferenceEngine."""
     from automoe_tpu_torch.configs import default_model_config
     from automoe_tpu_torch.infer.engine import InferenceEngine
 
-    cfg = args.model_config or default_model_config()
-    kw = dict(
+    cfg = model_config or default_model_config()
+    if checkpoint:
+        if not Path(checkpoint).is_file():
+            raise SystemExit(f"--checkpoint {checkpoint}: no such file")
+        if ema and checkpoint.endswith(".pth"):
+            raise SystemExit("--ema needs a checkpoint written by an automoe-train-torch "
+                             "run with --ema-decay (not a .pth)")
+        return InferenceEngine.from_torch_checkpoint(cfg, checkpoint, prefer_ema=ema, **kw)
+    if ema:
+        raise SystemExit("--ema needs --checkpoint")
+    return InferenceEngine(cfg, **kw)
+
+
+def build_engine(args):
+    import torch
+
+    return load_engine(
+        args.model_config, args.checkpoint, args.ema,
         camera_hw=tuple(args.camera_hw),
         model_hw=tuple(args.model_hw),
         dtype=torch.float32 if args.fp32 else torch.bfloat16,
         quantize=args.quantize,
         device=args.device,
     )
-    if args.checkpoint:
-        if not Path(args.checkpoint).is_file():
-            raise SystemExit(f"--checkpoint {args.checkpoint}: no such file")
-        if args.ema and args.checkpoint.endswith(".pth"):
-            raise SystemExit("--ema needs a checkpoint written by an automoe-train-torch "
-                             "run with --ema-decay (not a .pth)")
-        return InferenceEngine.from_torch_checkpoint(cfg, args.checkpoint,
-                                                     prefer_ema=args.ema, **kw)
-    if args.ema:
-        raise SystemExit("--ema needs --checkpoint")
-    return InferenceEngine(cfg, **kw)
 
 
 def main(argv: Optional[Sequence[str]] = None, block: bool = True):

@@ -1,16 +1,21 @@
 """Post-training int8 quantization for the serving path (port of
-automoe_tpu/serving/quant.py, the path `make_quant_forward` runs by
-default: trunk "q8", stem "s2d"; and, for one expert evaluated alone,
-`quantize_expert` + `make_expert_quant_apply` over the q8 trunk with its
-own float stem).
+automoe_tpu/serving/quant.py): `make_quant_forward` with the JAX
+package's trunks ("q8", int8-resident, the default; "v1", a round trip
+through the serving dtype between convs) and q8 stems ("s2d", the
+default; "fused", one dense 7x7 conv over all experts; "solo", each
+expert's own float stem); and, for one expert evaluated alone,
+`quantize_expert` + `make_expert_quant_apply` over either trunk with the
+expert's own float stem.
 
   * BatchNorm is FOLDED into the preceding conv (exact at inference);
   * trunk weights are int8 with per-output-channel scales (symmetric);
   * activations are int8 with per-tensor scales from abs-max calibration;
-  * the stems of all experts run as ONE space-to-depth conv whose int8
-    output is pooled in the same kernel (ops/stem.py, kernel K3), or, in
-    the "pool" variant, as a torch conv + quantize followed by the int8
-    pool kernel K4;
+  * the "s2d" stem runs the stems of all experts as ONE space-to-depth
+    conv whose int8 output is pooled in the same kernel (ops/stem.py,
+    kernel K3), or, in the "pool" variant, as a torch conv + quantize
+    followed by the int8 pool kernel K4; the "fused" and "solo" stems and
+    the v1 trunk's stem are torch convs (XLA convs in the JAX package,
+    no Pallas kernel);
   * the int8 trunk convs are im2col (Tensor.unfold views) + torch._int_mm
     (int8 x int8 → int32, exact), with requantization folded into each
     conv's f32 epilogue so activations stay int8 between convs.
@@ -31,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from automoe_tpu_torch.configs import load_model_config
-from automoe_tpu_torch.models.automoe import lidar_or_zeros, simple_context
+from automoe_tpu_torch.models.automoe import lidar_or_zeros
 from automoe_tpu_torch.models.resnet import STAGES
 from automoe_tpu_torch.ops.stem import (
     maxpool3x3s2_int8,
@@ -141,11 +146,14 @@ def _act_scale(s: float) -> np.float32:
     return np.float32(float(max(s, 1e-12)) / 127.0)
 
 
-def pack_trunk(qpack: Dict, scales: Dict[str, float], device) -> Dict[str, Dict]:
+def pack_trunk(qpack: Dict, scales: Dict[str, float], device, trunk: str = "q8"
+               ) -> Dict[str, Dict]:
     """int8 convs of one quantized trunk as device tensors for the
     im2col matmul: wmat [kh*kw*I, O] int8 (rows ordered kh, kw, cin),
     dequant vectors sw·s_in f32 (formed in numpy f32, as the JAX package
-    forms them) and bias f32."""
+    forms them) and bias f32. For trunk "v1" each conv quantizes its own
+    input: the downsample dequantizes with its own scale, and each conv
+    carries the multiplier `inv` of its input's quantize."""
     out = {}
     for name, p in qpack.items():
         if "wq" not in p:
@@ -153,7 +161,7 @@ def pack_trunk(qpack: Dict, scales: Dict[str, float], device) -> Dict[str, Dict]
         wq = p["wq"]
         O, I, kh, kw = wq.shape
         s_in = _act_scale(scales[name])
-        if name.endswith("downsample_conv"):
+        if trunk != "v1" and name.endswith("downsample_conv"):
             # the downsample shares conv1's int8 input, so it dequantizes
             # with conv1's scale (its own calibrated scale is ~equal)
             s_in = _act_scale(scales[name.replace("downsample_conv", "conv1")])
@@ -165,6 +173,10 @@ def pack_trunk(qpack: Dict, scales: Dict[str, float], device) -> Dict[str, Dict]
             "b": torch.from_numpy(p["b"]).to(device),
             "k": kh,
         }
+        if trunk == "v1":
+            # the JAX v1 trunk takes 1/s from the float64 scale
+            out[name]["inv"] = float(np.float32(1.0 / (float(max(scales[name], 1e-12))
+                                                       / 127.0)))
     return out
 
 
@@ -229,6 +241,32 @@ def resnet_quant_forward_q8(trunk: Dict, scales: Dict[str, float],
                                    else f"layer{stage + 1}_0/conv1"])
             xq = _quant(out, si)
     raise AssertionError("unreachable")
+
+
+def resnet_quant_forward(qexpert: Dict, x: torch.Tensor, dtype=torch.bfloat16
+                         ) -> torch.Tensor:
+    """The v1 int8 trunk over NCHW x, from `prepare_qexpert(...,
+    trunk="v1")`: the float stem (conv + bias in `dtype`, ReLU, 3x3/s2
+    max-pool), then every conv quantizes its `dtype` input with its own
+    calibrated scale, accumulates in int32 and writes `dtype` (bias in
+    f32, then rounded); ReLUs and residual adds run in `dtype`. Returns
+    NHWC features in `dtype`."""
+    trunk = qexpert["trunk"]
+
+    def conv(name, x, stride, pad):
+        p = trunk[name]
+        y = _conv_i8(quantize_int8(x, p["inv"]), p, stride, pad)
+        return (y.float() * p["scale"] + p["b"]).to(dtype)
+
+    x = float_stem(qexpert, x, dtype).permute(0, 2, 3, 1)  # NHWC
+    for stage, _, stride in _STAGES:
+        for blk in (0, 1):
+            n = f"layer{stage}_{blk}"
+            s = stride if blk == 0 else 1
+            y = conv(f"{n}/conv2", torch.relu(conv(f"{n}/conv1", x, s, 1)), 1, 1)
+            r = conv(f"{n}/downsample_conv", x, s, 0) if f"{n}/downsample_conv" in trunk else x
+            x = torch.relu(y + r)
+    return x
 
 
 def _s2d_stem_kernel(w: np.ndarray) -> np.ndarray:
@@ -320,6 +358,41 @@ def stems_s2d_q8(qpacks: Sequence[Dict], scales: Sequence[Dict[str, float]],
     return S2DStem(qpacks, scales, dtype, x.device)(x, variant)
 
 
+def _float_stems(qpacks: Sequence[Dict]):
+    for q in qpacks:
+        if "wq" in q["conv1"]:
+            raise NotImplementedError("the q8 stems expect float stems")
+        yield q["conv1"]
+
+
+class FusedStem:
+    """All E float stems as ONE dense 7x7/s2 conv over the image (their
+    kernels concatenated along the output channels: exact), one ReLU and
+    max-pool, and one per-channel quantize into each expert's int8 trunk
+    entry (the JAX package's fused_stems_q8, an XLA conv there; torch ops
+    here)."""
+
+    def __init__(self, qpacks: Sequence[Dict], scales: Sequence[Dict[str, float]],
+                 dtype=torch.bfloat16, device="cpu"):
+        stems = list(_float_stems(qpacks))
+        self.dtype = dtype
+        self.sis = [_act_scale(s["layer1_0/conv1"]) for s in scales]
+        self.channels = stems[0]["w"].shape[0]
+        self.w = torch.from_numpy(np.concatenate([p["w"] for p in stems])).to(device, dtype)
+        self.b = torch.from_numpy(np.concatenate([p["b"] for p in stems])).to(device, dtype)
+        inv = np.repeat(np.asarray([1.0 / s for s in self.sis], np.float32), self.channels)
+        self.inv = torch.from_numpy(inv).to(device)
+
+    def __call__(self, x: torch.Tensor, variant: str = "fused"):
+        """x NCHW image → [(xq int8 [B,H/4,W/4,64] NHWC, si), ...] per
+        expert (`variant` is the s2d stem's and unused here)."""
+        h = F.conv2d(x.to(self.dtype), self.w, stride=2, padding=3) + self.b[:, None, None]
+        h = F.max_pool2d(torch.relu(h), 3, 2, 1)
+        hq = quantize_int8(h, self.inv[:, None, None]).permute(0, 2, 3, 1).contiguous()
+        C = self.channels
+        return [(hq[..., i * C:(i + 1) * C], self.sis[i]) for i in range(len(self.sis))]
+
+
 # ---------------------------------------------------------------------------
 # AutoMoE-level assembly
 # ---------------------------------------------------------------------------
@@ -362,24 +435,51 @@ def quantize_automoe(model, calib_batches: Sequence[Dict], dtype=torch.bfloat16,
             "scales": scales}
 
 
-def prepare_qexperts(qpack: Dict[str, Any], dtype=torch.bfloat16, device="cpu") -> Dict:
-    """Device-side constants of a `quantize_automoe` pack: the s2d stem
-    and each expert's int8 trunk."""
-    return {
-        "stem": S2DStem(qpack["experts"], qpack["scales"], dtype, device),
-        "trunks": [pack_trunk(q, s, device)
-                   for q, s in zip(qpack["experts"], qpack["scales"])],
-    }
+_STEMS = {"s2d": S2DStem, "fused": FusedStem}
+
+
+def _check_trunk_stem(trunk: str, stem: str) -> None:
+    if trunk not in ("q8", "v1"):
+        raise ValueError(f"unknown trunk {trunk!r}")
+    if stem not in ("s2d", "fused", "solo"):
+        raise ValueError(f"unknown stem {stem!r}")
+
+
+def prepare_qexperts(qpack: Dict[str, Any], dtype=torch.bfloat16, device="cpu", *,
+                     trunk: str = "q8", stem: str = "s2d") -> Dict:
+    """Device-side constants of a `quantize_automoe` pack for
+    `make_quant_forward` with the same trunk and stem: the stem of all
+    experts ("s2d", "fused") and each expert's int8 trunk, or each
+    expert's own float stem and trunk (`prepare_qexpert`: "solo", and the
+    v1 trunk, which has no shared stem)."""
+    _check_trunk_stem(trunk, stem)
+    experts, scales = qpack["experts"], qpack["scales"]
+    out = {"trunk": trunk, "stem_kind": stem}
+    if trunk == "v1" or stem == "solo":
+        out["experts"] = [prepare_qexpert(q, s, dtype, device, trunk=trunk)
+                          for q, s in zip(experts, scales)]
+    else:
+        out["stem"] = _STEMS[stem](experts, scales, dtype, device)
+        out["trunks"] = [pack_trunk(q, s, device) for q, s in zip(experts, scales)]
+    return out
 
 
 def make_quant_forward(config, scales: List[Dict[str, float]], dtype=torch.bfloat16,
-                       stem_variant: str = "fused"):
+                       stem_variant: str = "fused", *, trunk: str = "q8", stem: str = "s2d"):
     """fn(model, qexperts, batch) -> AutoMoE serving outputs with int8
-    expert trunks; heads, extractors, gating and policy are `model`'s own
-    modules (cast to `dtype`), with the fast gating pool. `qexperts`
-    comes from `prepare_qexperts`. A LiDAR nuScenes expert runs its
-    PointNet in `dtype` beside the int8 image trunk, on the batch's points
-    or, without them, on zero points as the float model does."""
+    expert trunks; heads, extractors, context, gating and policy are
+    `model`'s own modules (cast to `dtype`), with the fast gating pool and
+    noise-free routing. `qexperts` comes from `prepare_qexperts` with the
+    same `trunk` and `stem`. A LiDAR nuScenes expert runs its PointNet in
+    `dtype` beside the int8 image trunk, on the batch's points or, without
+    them, on zero points as the float model does.
+
+    trunk and stem have the JAX package's meanings: trunk "q8" or "v1"
+    (which ignores `stem`, as in JAX); stem "s2d", "fused" or "solo".
+    `stem_variant` is this port's own choice of how the "s2d" stem runs:
+    "fused" is kernel K3 (JAX's s2d stem with use_pallas=True), "pool" a
+    torch conv + quantize followed by kernel K4."""
+    _check_trunk_stem(trunk, stem)
     config = load_model_config(config)
 
     @torch.no_grad()
@@ -387,17 +487,21 @@ def make_quant_forward(config, scales: List[Dict[str, float]], dtype=torch.bfloa
         if not model.fast_gating_pool:
             raise ValueError("the int8 forward pools seg/drivable logits "
                              "at low res: build the model with fast_gating_pool")
+        if (qexperts["trunk"], qexperts["stem_kind"]) != (trunk, stem):
+            raise ValueError(f"qexperts were prepared for trunk {qexperts['trunk']!r}, stem "
+                             f"{qexperts['stem_kind']!r}; this forward runs {trunk!r}, {stem!r}")
         image = batch["image"].to(dtype).permute(0, 3, 1, 2)  # NHWC → NCHW
         B = image.shape[0]
-        context_features = model.context_extractor(
-            *simple_context(batch, B, dtype, image.device)
-        )
-        stems = qexperts["stem"](image, stem_variant)
+        context_features = model.context_features(batch, B, dtype, image.device)
+        stems = qexperts["stem"](image, stem_variant) if "stem" in qexperts else None
         expert_outputs = []
         for i, (ecfg, expert) in enumerate(zip(config.experts, model.experts)):
-            feats = resnet_quant_forward_q8(
-                qexperts["trunks"][i], scales[i], stems[i], dtype=dtype
-            ).permute(0, 3, 1, 2)  # [B,512,h,w]
+            if stems is None:  # the v1 trunk, or the "solo" stem
+                feats = own_stem_trunk(qexperts["experts"][i], scales[i], image, dtype, trunk)
+            else:
+                feats = resnet_quant_forward_q8(qexperts["trunks"][i], scales[i], stems[i],
+                                                dtype=dtype)
+            feats = feats.permute(0, 3, 1, 2)  # [B,512,h,w]
             if ecfg.type == "nuscenes":
                 lidar = (lidar_or_zeros(batch, B, dtype, image.device)
                          if ecfg.use_lidar else None)
@@ -405,7 +509,7 @@ def make_quant_forward(config, scales: List[Dict[str, float]], dtype=torch.bfloa
             else:
                 expert_outputs.append(expert.heads(feats))
         features = model.extractor_features(expert_outputs, image.shape[2:])
-        out = model.head_outputs(image, features, context_features)
+        out = model.head_outputs(image, features, context_features, noise=False)
         return {k: out[k] for k in ("waypoints", "speed", "speed_seq",
                                     "expert_weights", "combined_features",
                                     "gate_logits")}
@@ -440,28 +544,43 @@ def quantize_expert(expert, calib_images: Sequence, dtype=torch.bfloat16,
 
 
 def prepare_qexpert(qpack: Dict, scales: Dict[str, float], dtype=torch.bfloat16,
-                    device="cpu") -> Dict:
-    """Device-side constants of a `quantize_expert` pack: its float stem
-    conv (OIHW, in `dtype`) and its int8 trunk."""
-    p = qpack["conv1"]
-    if "wq" in p:
-        raise NotImplementedError("the q8 trunk keeps the stem float")
+                    device="cpu", trunk: str = "q8") -> Dict:
+    """Device-side constants of one expert's quantized pack (from
+    `quantize_expert`, or one expert of `quantize_automoe`): its float
+    stem conv (OIHW, in `dtype`) and its int8 trunk (`pack_trunk`)."""
+    p = next(_float_stems([qpack]))
     return {"stem_w": torch.from_numpy(p["w"]).to(device, dtype),
             "stem_b": torch.from_numpy(p["b"]).to(device, dtype),
-            "trunk": pack_trunk(qpack, scales, device)}
+            "trunk": pack_trunk(qpack, scales, device, trunk)}
+
+
+def float_stem(qexpert: Dict, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """An expert's own float stem over NCHW x: the 7x7/s2 conv + bias in
+    `dtype`, ReLU, the 3x3/s2 SAME max-pool (-inf padding) → NCHW."""
+    h = F.conv2d(x.to(dtype), qexpert["stem_w"], stride=2, padding=3) \
+        + qexpert["stem_b"][:, None, None]
+    return F.max_pool2d(torch.relu(h), 3, 2, 1)
 
 
 def float_stem_q8(qexpert: Dict, scales: Dict[str, float], x: torch.Tensor,
                   dtype=torch.bfloat16):
-    """The q8 trunk's own float stem, for an expert served alone (the JAX
-    package's resnet_quant_forward_q8 with stem_in=None): the 7x7/s2 conv
-    + bias in `dtype`, ReLU, the 3x3/s2 SAME max-pool (-inf padding), then
-    the int8 domain at layer1_0/conv1's scale. x NCHW → (xq int8 NHWC, si)."""
-    h = F.conv2d(x.to(dtype), qexpert["stem_w"], stride=2, padding=3) \
-        + qexpert["stem_b"][:, None, None]
-    h = F.max_pool2d(torch.relu(h), 3, 2, 1)
+    """The q8 trunk's own float stem, for an expert served alone or the
+    "solo" stem (the JAX package's resnet_quant_forward_q8 with
+    stem_in=None): `float_stem`, then the int8 domain at layer1_0/conv1's
+    scale. x NCHW → (xq int8 NHWC, si)."""
+    h = float_stem(qexpert, x, dtype)
     si = _act_scale(scales["layer1_0/conv1"])
     return _quant(h.float().permute(0, 2, 3, 1).contiguous(), si), si
+
+
+def own_stem_trunk(qexpert: Dict, scales: Dict[str, float], x: torch.Tensor, dtype,
+                   trunk: str = "q8") -> torch.Tensor:
+    """One expert's int8 trunk behind its own float stem, from
+    `prepare_qexpert` with the same `trunk`: x NCHW → NHWC features."""
+    if trunk == "v1":
+        return resnet_quant_forward(qexpert, x, dtype)
+    return resnet_quant_forward_q8(qexpert["trunk"], scales,
+                                   float_stem_q8(qexpert, scales, x, dtype), dtype=dtype)
 
 
 def make_expert_quant_apply(task: str, num_classes: int, scales: Dict[str, float],
@@ -472,14 +591,10 @@ def make_expert_quant_apply(task: str, num_classes: int, scales: Dict[str, float
     → [B,C,H,W] logits resized to the image (ops/resize.py, bilinear, no
     antialias). `expert` is the float module (its head or decoder runs, in
     the module's dtype, which should be `dtype`); `qexpert` comes from
-    `prepare_qexpert`. Plugs into evaluate_detection / evaluate_seg_like
-    with functools.partial(fn, expert, qexpert)."""
-    if trunk == "v1":
-        raise NotImplementedError("trunk='v1' (the bf16 round trip between int8 convs, "
-                                  "resnet_quant_forward) is not ported: ROADMAP.md §1, "
-                                  "'Serving and model leftovers'")
-    if trunk != "q8":
-        raise ValueError(f"unknown trunk {trunk!r}")
+    `prepare_qexpert` with the same `trunk` ("q8" or "v1"). Plugs into
+    evaluate_detection / evaluate_seg_like with
+    functools.partial(fn, expert, qexpert)."""
+    _check_trunk_stem(trunk, "solo")
     if task not in ("detection", "segmentation", "drivable"):
         raise ValueError(f"unknown task {task!r}")
     from automoe_tpu_torch.models.experts import bilinear_resize
@@ -488,9 +603,7 @@ def make_expert_quant_apply(task: str, num_classes: int, scales: Dict[str, float
     def apply_fn(expert, qexpert: Dict, image: torch.Tensor):
         if expert.num_classes != num_classes:
             raise ValueError(f"the expert has {expert.num_classes} classes, not {num_classes}")
-        feats = resnet_quant_forward_q8(qexpert["trunk"], scales,
-                                        float_stem_q8(qexpert, scales, image, dtype),
-                                        dtype=dtype).permute(0, 3, 1, 2)
+        feats = own_stem_trunk(qexpert, scales, image, dtype, trunk).permute(0, 3, 1, 2)
         out = expert.heads(feats)
         if task == "detection":
             return out

@@ -55,6 +55,8 @@ LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 #: folded into a step's key for its augmentation draw (the JAX package
 #: folds the same constant into its step key)
 AUGMENT_FOLD = 0x41554721
+#: folded into a step's key for its routing-noise draw
+ROUTING_FOLD = 0x524f5554
 
 
 def autocast(device: torch.device, dtype: torch.dtype):
@@ -330,7 +332,13 @@ def gating_workload(model_config: Any, *, loss_config: Optional[Mapping] = None,
     not run at all; batches carry the cached `expert_pooled_{i}` features
     (train/feature_cache.py::PooledFeatureDataset), which is exactly the
     experts_eval step. The experts' modules stay in the model either way,
-    so their weights and statistics stay in the state dict untouched."""
+    so their weights and statistics stay in the state dict untouched.
+
+    With gating.honor_topk_in_composite and top_k > 0, a train step routes
+    top-k over noisy logits; the noise comes from a generator seeded from
+    the step's key (so from --seed), and a step without a key raises, as
+    a missing 'gating' RNG stream does in the JAX package. The noise is
+    drawn on the CPU, so the card and the CPU route alike."""
     from automoe_tpu_torch.train.feature_cache import pooled_keys
 
     cfg: AutoMoEConfig = load_model_config(model_config)
@@ -344,6 +352,10 @@ def gating_workload(model_config: Any, *, loss_config: Optional[Mapping] = None,
             batch = {k: v for k, v in batch.items() if k not in names}
         elif experts_eval:
             kw["experts_eval"] = True
+        if key is not None:
+            from automoe_tpu_torch.train.step import seed_from
+
+            kw["generator"] = torch.Generator().manual_seed(seed_from((*key, ROUTING_FOLD)))
         with autocast(batch["image"].device, dtype):
             out = _float(model(batch, **kw))
         res = gating_losses(out, batch["waypoints"], batch["speed"], lcfg)

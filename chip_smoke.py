@@ -9,7 +9,8 @@ Phases, each of which must pass (none is caught):
      all started together (stem.cu timed here, auction.cu in 8, the
      reader in 15);
   2. K3, the fused int8 stem kernel, against its plain PyTorch version
-     at B=8 and B=128, 256x256 input: int8 outputs within ±1 on at most
+     at B=1 and B=2 (the closed loop's batch: most persistent blocks get
+     no tile), B=8 and B=128, 256x256 input: int8 outputs within ±1 on at most
      0.1% of elements, with inv > 0 and with inv of both signs; the
      kernel's time alone (back-to-back launches of the library's entry
      point, three blocks of 50) and through its
@@ -144,7 +145,21 @@ Phases, each of which must pass (none is caught):
      gating checkpoint, 64 windows (K3 f32 once per batch),
      `visualize-detection` (16 overlays, K2 once), `training-curves` on
      phase 12's detection run; then `automoe-serve-torch --quantize
-     --fp32` answers 4 TCP requests, K3 f32 once per server batch.
+     --fp32` answers 4 TCP requests, K3 f32 once per server batch;
+ 17. the closed loop, `automoe-infer-torch` (infer/run_automoe.py) on
+     MockSim at full width (the default 4-expert config, 600x800 frames →
+     256x256): (a) `--steps 200` in bf16 (no kernel launched); (b) the
+     same with `--quantize`, K3 launched at B=1 once per control step and
+     once for the warm-up (201); (c) `--checkpoint <phase 12's gating
+     best> --quantize`, 50 steps (51 launches); (d) `--backend carla` on
+     tests/carla_stub.py, 10 steps with --quantize (11); every log's
+     controls finite and in range, expert weights summing to 1; (e) a
+     12-step f32 closed loop, card against CPU, TF32 off: steer, throttle,
+     brake and speed within atol 1e-4, expert weights within 1e-5; (f) the
+     engine with context 'full' and top-2 routing honoured at eval
+     (apply_topk_at_eval), f32, B=8, card against CPU (rtol 1e-3 / atol
+     1e-4, two experts chosen a frame). Each prints its p50 inference time
+     (host clock of `engine.infer`) and launches.
 
 Prints the card's name and power limit, one JSON line of kernel results,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a CUDA
@@ -152,6 +167,7 @@ device or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import subprocess
 import sys
@@ -274,7 +290,7 @@ def k3_against_plain(stem, args, gen):
 
 
 def phase_k3(stem, gen):
-    """K3 against its plain version at B=8 and B=128: int8 outputs within
+    """K3 against its plain version at B=1, 2, 8 and 128: int8 outputs within
     ±1 on at most 0.1% of elements, with inv > 0 and with inv of both
     signs. Times: the kernel alone (three blocks of 50 back-to-back
     launches, the median block), its wrapper (median of 30 calls, one event
@@ -285,7 +301,7 @@ def phase_k3(stem, gen):
     from automoe_tpu_torch.serving.quant import s2d_stem_pool_unfused
 
     res = {}
-    for B in (B_MAIN, 128):
+    for B in (1, 2, B_MAIN, 128):
         args = stem_inputs(B, gen)
         out, max_err, frac, mixed_err, mixed_frac = k3_against_plain(stem, args, gen)
         xs, w, bias, inv = args
@@ -1237,6 +1253,117 @@ def phase_eval_cli(tmp: Path, det_best: Path, gating_best: Path, det_run: Path,
     return out
 
 
+def infer_cli_run(argv, out_dir: Path) -> dict:
+    """`automoe-infer-torch` through its entry point on the card, K3's
+    launches counted from 0 around it: its summary line, the launches, the
+    run's seconds; every step's controls finite and in range, its expert
+    weights summing to 1."""
+    from automoe_tpu_torch.infer.run_automoe import main as infer_main
+    from automoe_tpu_torch.ops import stem
+
+    stem.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = infer_main([*argv, "--out-dir", str(out_dir)])
+    seconds = time.perf_counter() - t0
+    launches = dict(stem.LAUNCHES)
+    logs = json.loads((out_dir / "log.json").read_text())
+    assert len(logs) == summary["steps"] and np.isfinite(summary["p50_infer_ms"]), summary
+    for entry in logs:
+        assert np.isfinite([entry["steer"], entry["throttle"], entry["brake"],
+                            entry["target_kmh"]]).all(), entry
+        assert 0 <= entry["throttle"] <= 1 and -1 <= entry["steer"] <= 1, entry
+        np.testing.assert_allclose(sum(entry["expert_weights"]), 1.0, rtol=1e-2)
+    return dict(summary, launches=launches, seconds=seconds)
+
+
+#: the closed loop's control steps through the entry point (phase 17)
+LOOP_STEPS = 200
+
+
+def phase_closed_loop(tmp: Path, gating_best: Path, frames, speeds):
+    """17: `automoe-infer-torch` on MockSim and the CARLA stub at full
+    width; then the closed loop at f32 and the full-context top-k engine,
+    each card against CPU (TF32 off)."""
+    import dataclasses
+
+    import torch
+
+    from automoe_tpu_torch.configs import default_model_config
+    from automoe_tpu_torch.infer import InferenceEngine
+    from automoe_tpu_torch.infer.run_automoe import run_closed_loop
+    from automoe_tpu_torch.infer.sim import MockSim
+
+    k3_only = {"s2d_stem_pool_int8_f32": 0, "maxpool3x3s2_int8": 0}
+    out = {}
+    # name: (argv, K3 launches: one per control step and one for the warm-up)
+    cases = {
+        "a bf16": (["--steps", str(LOOP_STEPS)], 0),
+        "b --quantize": (["--steps", str(LOOP_STEPS), "--quantize"], LOOP_STEPS + 1),
+        "c --checkpoint <gating best> --quantize": (
+            ["--steps", "50", "--checkpoint", str(gating_best), "--quantize"], 51),
+    }
+    for name, (argv, k3) in cases.items():
+        out[name] = infer_cli_run(["--backend", "mock", *argv], tmp / name.split()[0])
+        assert out[name]["launches"] == {"s2d_stem_pool_int8": k3, **k3_only}, (name, out[name])
+        print(f"phase 17 {name}: {out[name]}", flush=True)
+
+    # by path: a `tests` package installed elsewhere may shadow the checkout's
+    spec = importlib.util.spec_from_file_location(
+        "carla_stub", Path(__file__).resolve().parent / "tests" / "carla_stub.py")
+    carla_stub = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(carla_stub)
+    had = sys.modules.get("carla")
+    carla_stub.install()
+    try:
+        out["d --backend carla"] = infer_cli_run(
+            ["--backend", "carla", "--steps", "10", "--quantize"], tmp / "d")
+    finally:
+        if had is None:
+            del sys.modules["carla"]
+        else:
+            sys.modules["carla"] = had
+    assert out["d --backend carla"]["launches"] == {"s2d_stem_pool_int8": 11, **k3_only}
+    print(f"phase 17 d --backend carla: {out['d --backend carla']}", flush=True)
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg = default_model_config()
+    logs = {d: run_closed_loop(InferenceEngine(cfg, dtype=torch.float32, device=d),
+                               MockSim(seed=SEED), steps=12) for d in ("cuda", "cpu")}
+    diff = {"controls": 0.0, "expert_weights": 0.0}
+    for g, w in zip(logs["cuda"], logs["cpu"]):
+        for k in ("steer", "throttle", "brake", "speed_kmh"):
+            assert abs(g[k] - w[k]) <= 1e-4, (g["step"], k, g[k], w[k])
+            diff["controls"] = max(diff["controls"], abs(g[k] - w[k]))
+        ew = float(np.abs(np.subtract(g["expert_weights"], w["expert_weights"])).max())
+        assert ew <= 1e-5, (g["step"], ew)
+        diff["expert_weights"] = max(diff["expert_weights"], ew)
+    out["e f32 card vs cpu, 12 steps"] = dict(
+        max_abs_diff=diff, final_speed_kmh=logs["cuda"][-1]["speed_kmh"],
+        p50_infer_ms=float(np.median([e["infer_ms"] for e in logs["cuda"][5:]])),
+        p50_infer_ms_cpu=float(np.median([e["infer_ms"] for e in logs["cpu"][5:]])))
+    print(f"phase 17 e: {out['e f32 card vs cpu, 12 steps']}", flush=True)
+
+    full = dataclasses.replace(
+        cfg, context=dataclasses.replace(cfg.context, type="full"),
+        gating=dataclasses.replace(cfg.gating, honor_topk_in_composite=True))
+    assert full.gating.top_k == 2 and full.gating.apply_topk_at_eval
+    engines = {d: InferenceEngine(full, dtype=torch.float32, device=d) for d in ("cuda", "cpu")}
+    res = {d: e.infer_batch(frames, speeds) for d, e in engines.items()}
+    for k in res["cpu"]:
+        np.testing.assert_allclose(res["cuda"][k], res["cpu"][k], rtol=1e-3, atol=1e-4,
+                                   err_msg=k)
+    chosen = (res["cuda"]["expert_weights"] > 0).sum(-1)
+    assert (chosen == 2).all(), chosen
+    out["f full context, top-2 at eval, B=8"] = dict(
+        step_ms=step_ms(engines["cuda"], frames, speeds), experts_chosen=chosen.tolist(),
+        max_abs_diff_vs_cpu={k: float(np.abs(res["cuda"][k] - res["cpu"][k]).max())
+                             for k in res["cpu"]})
+    print(f"phase 17 f: {out['f full context, top-2 at eval, B=8']}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
 def rel_err(a, b) -> float:
     a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
     return float(np.abs(a - b).mean() / (np.abs(a).mean() + 1e-12))
@@ -1417,8 +1544,17 @@ def main() -> int:
                                ck12 / "gating" / "gating" / "best.pt",
                                Path(tmp12.name) / "runs" / "bdd_detection_det",
                                Path(tmp13.name), frames, speeds)
-    tmp12.cleanup()
     tmp13.cleanup()
+
+    # 17. the closed loop through automoe-infer-torch (K3 at B=1 every control
+    # step with --quantize), on phase 12's gating checkpoint too; then card
+    # against CPU at f32 and with full context and top-k routing
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+    print(smi, flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        loop = phase_closed_loop(Path(tmp), ck12 / "gating" / "gating" / "best.pt", frames,
+                                 speeds)
+    tmp12.cleanup()
 
     src = "automoe_tpu_torch/csrc/stem.cu"
     main_, big = k3[B_MAIN], k3[128]
@@ -1446,12 +1582,40 @@ def main() -> int:
                              "serve the gating checkpoint's EMA, --ema --quantize (phase 14e)":
                                  options["e"]["k3_launches"],
                              "serve the cached, device-resident gating checkpoint (phase 15e)":
-                                 fast["e"]["k3_launches"]},
+                                 fast["e"]["k3_launches"],
+                             "automoe-infer-torch --quantize, 200 steps at B=1 (phase 17)":
+                                 loop["b --quantize"]["launches"]["s2d_stem_pool_int8"]},
         "b128": {k: big[k] for k in ("ms", "ms_blocks", "wrapper_ms", "plain_ms", "unfused_ms",
                                      "bound_ms", "max_abs_err", "diff_frac",
                                      "mixed_sign_inv_max_abs_err",
                                      "mixed_sign_inv_diff_frac")},
     }]
+    one = k3[1]
+    kernels.append({
+        "name": "s2d_stem_pool_int8 (B=1, the closed loop)", "route": "cuda", "source": src,
+        "replaces": "automoe_tpu/ops/pallas_stem.py:103",
+        "launches": loop["b --quantize"]["launches"]["s2d_stem_pool_int8"],
+        "max_abs_err": one["max_abs_err"], "diff_frac": one["diff_frac"], "ms": one["ms"],
+        "plain_ms": one["plain_ms"], "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+        # no single PyTorch call computes conv + bias + ReLU + quantize + pool
+        "library_ms": None,
+        "unfused_ms": one["unfused_ms"], "shape_batch": 1, "ms_blocks": one["ms_blocks"],
+        "wrapper_ms": one["wrapper_ms"],
+        "mixed_sign_inv_max_abs_err": one["mixed_sign_inv_max_abs_err"],
+        "mixed_sign_inv_diff_frac": one["mixed_sign_inv_diff_frac"],
+        "launches_by_path": {
+            "automoe-infer-torch --quantize, 200 steps (phase 17b)":
+                loop["b --quantize"]["launches"]["s2d_stem_pool_int8"],
+            "automoe-infer-torch --checkpoint <gating best> --quantize, 50 steps (phase 17c)":
+                loop["c --checkpoint <gating best> --quantize"]["launches"][
+                    "s2d_stem_pool_int8"],
+            "automoe-infer-torch --backend carla --quantize, 10 steps (phase 17d)":
+                loop["d --backend carla"]["launches"]["s2d_stem_pool_int8"]},
+        "b2": {k: k3[2][k] for k in ("ms", "ms_blocks", "wrapper_ms", "plain_ms", "unfused_ms",
+                                     "bound_ms", "bound_by", "max_abs_err", "diff_frac",
+                                     "mixed_sign_inv_max_abs_err",
+                                     "mixed_sign_inv_diff_frac")},
+    })
     main_, small = k3f[32], k3f[B_MAIN]
     kernels.append({
         "name": "s2d_stem_pool_int8_f32", "route": "cuda", "source": src,
@@ -1544,6 +1708,7 @@ def main() -> int:
     print(json.dumps({"step_options": {"card_vs_cpu": options_step, **options}}), flush=True)
     print(json.dumps({"fast_data": fast}), flush=True)
     print(json.dumps({"eval_cli": evals}), flush=True)
+    print(json.dumps({"closed_loop": loop}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,6 +58,26 @@ def test_stem_kernel_matches_plain(gen, B, H, W, O, zero_inv):
     assert d.max() <= 1 and (d > 0).float().mean() <= 1e-3
 
 
+@pytest.mark.parametrize("B", [1, 2])
+def test_stem_kernel_at_the_closed_loops_batch(gen, B):
+    """K3 bf16 at B=1 (`automoe-infer-torch --quantize`, one frame a
+    control step) and B=2, full 256x256 input, O = 256: far fewer row tiles
+    than the card has SMs, so most persistent blocks get none and must
+    exit. Two launches back to back, each against the plain version
+    (±1 on at most 0.1% of elements) and equal to each other."""
+    from automoe_tpu_torch.ops import stem
+
+    xs, w, bias, inv = _stem_inputs(gen, B, 256, 256)
+    ref = stem.s2d_stem_pool_int8_plain(xs, w, bias, inv)
+    outs = [stem.s2d_stem_pool_int8(xs, w, bias, inv) for _ in range(2)]
+    torch.cuda.synchronize()
+    for out in outs:
+        assert out.shape == (B, 64, 64, 256)
+        d = (out.int() - ref.int()).abs()
+        assert d.max() <= 1 and (d > 0).float().mean() <= 1e-3
+    assert torch.equal(outs[0], outs[1])
+
+
 def test_stem_kernel_matches_plain_mixed_sign_inv(gen):
     """About half the channels with a negative inv, one with inv = 0: the
     kernel negates the pooled bytes of the negative channels, which gives
@@ -738,3 +758,131 @@ def test_eval_cli_bdd_detection_on_cuda_matches_cpu(gen, tmp_path):
     for k in ("avg_iou", "recall_0.5"):
         np.testing.assert_allclose(res["cuda"][k], res["cpu"][k], atol=1e-5, err_msg=k)
     assert res["cpu"]["avg_iou"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the closed loop and the model options a served config reaches
+# ---------------------------------------------------------------------------
+
+TINY = {
+    "experts": [
+        {"type": "drivable", "num_classes": 3},
+        {"type": "nuscenes", "num_queries": 8, "bbox_dim": 4, "fusion": "sum",
+         "use_lidar": False},
+    ],
+    "gating": {"top_k": 0, "noise_scale": 0.0},
+    "context": {"type": "simple"},
+    "policy": {"num_waypoints": 4},
+}
+
+
+def test_closed_loop_f32_on_cuda_matches_cpu(gen):
+    """run_closed_loop over MockSim with an f32 engine (the tiny config,
+    camera 120x160, model 64x64, 12 steps, TF32 off) on the card against
+    the CPU: steer, throttle, brake and speed within atol 1e-4, expert
+    weights within 1e-5 (the CPU tests' bounds against JAX)."""
+    from automoe_tpu_torch.infer import InferenceEngine
+    from automoe_tpu_torch.infer.run_automoe import run_closed_loop
+    from automoe_tpu_torch.infer.sim import MockSim
+
+    logs = {}
+    for device in ("cuda", "cpu"):
+        eng = InferenceEngine(TINY, camera_hw=(120, 160), model_hw=(64, 64),
+                              dtype=torch.float32, device=device, seed=3)
+        logs[device] = run_closed_loop(eng, MockSim(camera_hw=(120, 160), seed=2), steps=12)
+    for g, w in zip(logs["cuda"], logs["cpu"]):
+        for k in ("steer", "throttle", "brake", "speed_kmh"):
+            np.testing.assert_allclose(g[k], w[k], rtol=0, atol=1e-4, err_msg=(g["step"], k))
+        np.testing.assert_allclose(g["expert_weights"], w["expert_weights"], rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("trunk,stem_kind", [("v1", "s2d"), ("q8", "fused"), ("q8", "solo")])
+def test_int8_trunks_and_stems_on_cuda_match_cpu(gen, trunk, stem_kind):
+    """make_quant_forward with trunk "v1" and the "fused" and "solo" stems
+    (torch convs: no stem kernel launches) on the card against the CPU on
+    one quantized pack, f32, TF32 off: waypoint relative error < 0.03 and
+    expert weights within 0.05, the int8 engine's bounds."""
+    from automoe_tpu_torch.configs import default_model_config
+    from automoe_tpu_torch.models import create_automoe_model
+    from automoe_tpu_torch.ops import stem
+    from automoe_tpu_torch.serving.quant import (
+        make_quant_forward,
+        prepare_qexperts,
+        quantize_automoe,
+    )
+
+    cfg = default_model_config()
+    rng = np.random.default_rng(3)
+    image = torch.from_numpy(rng.normal(size=(4, 64, 64, 3)).astype(np.float32))
+    speed = torch.from_numpy(rng.uniform(0, 30, (4, 1)).astype(np.float32))
+    model = create_automoe_model(cfg, fast_gating_pool=True, device="cpu", seed=1)
+    pack = quantize_automoe(model, [{"image": image}], dtype=torch.float32)
+    fwd = make_quant_forward(cfg, pack["scales"], dtype=torch.float32, trunk=trunk,
+                             stem=stem_kind)
+    out = {}
+    for device in ("cpu", "cuda"):
+        m = model.to(device)
+        q = prepare_qexperts(pack, torch.float32, device, trunk=trunk, stem=stem_kind)
+        stem.reset_launch_counts()
+        out[device] = {k: v.cpu().numpy() for k, v in fwd(
+            m, q, {"image": image.to(device), "speed": speed.to(device)}).items()}
+        assert not any(stem.LAUNCHES.values()), stem.LAUNCHES
+    w = out["cpu"]["waypoints"]
+    assert np.isfinite(out["cuda"]["waypoints"]).all()
+    assert np.abs(out["cuda"]["waypoints"] - w).mean() / np.abs(w).mean() < 0.03
+    np.testing.assert_allclose(out["cuda"]["expert_weights"], out["cpu"]["expert_weights"],
+                               atol=0.05)
+
+
+def test_full_context_topk_automoe_on_cuda_matches_cpu(gen):
+    """AutoMoE with context 'full' and top-2 routing honoured at eval
+    (apply_topk_at_eval), f32, TF32 off, B=8: card against CPU at rtol 1e-3 /
+    atol 1e-4; then its gating network in train mode with routing noise
+    (scale 1) from one CPU generator seed on each device: the same experts
+    chosen."""
+    import dataclasses
+
+    from automoe_tpu_torch.configs import default_model_config
+    from automoe_tpu_torch.models import create_automoe_model
+
+    cfg = default_model_config()
+    cfg = dataclasses.replace(
+        cfg, context=dataclasses.replace(cfg.context, type="full"),
+        gating=dataclasses.replace(cfg.gating, honor_topk_in_composite=True))
+    rng = np.random.default_rng(4)
+
+    def col(lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, (8, 1)).astype(np.float32))
+
+    batch = {"image": torch.from_numpy(rng.normal(size=(8, 64, 64, 3)).astype(np.float32)),
+             "speed": col(0, 30), "hour": col(0, 24), "minute": col(0, 60),
+             "weather": {"rain": col(0, 1), "fog": col(0, 1)},
+             "road": {"curvature": col(-0.1, 0.1)}}
+    feats = [torch.from_numpy(rng.normal(size=(8, e.output_dim)).astype(np.float32))
+             for e in cfg.experts]
+    ctx = torch.from_numpy(rng.normal(size=(8, cfg.context.context_dim)).astype(np.float32))
+    model = create_automoe_model(cfg, fast_gating_pool=True, device="cpu", seed=2)
+    out = {}
+    for device in ("cpu", "cuda"):
+        m = model.to(device).eval()
+        b = {k: ({n: t.to(device) for n, t in v.items()} if isinstance(v, dict)
+                 else v.to(device)) for k, v in batch.items()}
+        g = m.gating_network
+        with torch.no_grad():
+            det = m(b)
+            g.noise_scale = 1.0
+            g.train()
+            for mod in g.modules():
+                if isinstance(mod, torch.nn.Dropout):
+                    mod.eval()
+            noisy = g([f.to(device) for f in feats], ctx.to(device),
+                      generator=torch.Generator().manual_seed(5))
+            g.noise_scale = 0.0
+        out[device] = (det, noisy)
+    for k in ("waypoints", "expert_weights", "combined_features", "context_features"):
+        np.testing.assert_allclose(out["cuda"][0][k].cpu().numpy(),
+                                   out["cpu"][0][k].numpy(), rtol=1e-3, atol=1e-4, err_msg=k)
+    assert ((out["cuda"][0]["expert_weights"] > 0).sum(-1) == 2).all()
+    chosen = [(o[1]["expert_weights"] > 0).cpu() for o in (out["cuda"], out["cpu"])]
+    assert torch.equal(chosen[0], chosen[1])

@@ -291,11 +291,37 @@ def test_quantize_expert_and_apply_match_jax(setup, task):
         assert close.mean() > 0.999, 1.0 - close.mean()
 
 
-def test_expert_quant_apply_v1_trunk_is_not_ported():
-    from automoe_tpu_torch.serving.quant import make_expert_quant_apply
+def test_expert_quant_apply_v1_trunk_is_not_ported(setup):
+    """Kept under its first name, from before the v1 trunk was ported: it
+    now holds make_expert_quant_apply(trunk="v1") against the JAX
+    package's on the JAX scales, at the tolerance of
+    test_quantize_expert_and_apply_match_jax."""
+    from automoe_tpu.serving import quant as jq
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_expert_quant_apply("detection", 10, {}, trunk="v1")
+    from automoe_tpu_torch.serving.quant import make_expert_quant_apply, prepare_qexpert
+
+    variables = setup["vars"]["detection"]
+    rng = np.random.default_rng(12)
+    calib = rng.normal(size=(B, S, S, 3)).astype(np.float32)
+    x = rng.normal(size=(B, S, S, 3)).astype(np.float32)
+    jpack, jscales = jq.quantize_expert(variables, [calib], dtype=jnp.float32)
+    want = jq.make_expert_quant_apply("detection", 10, jscales, dtype=jnp.float32,
+                                      trunk="v1")(
+        {"q": jpack, "params": variables["params"]}, jnp.asarray(x))
+    qpack = {k: ({**v, "wq": np.ascontiguousarray(v["wq"].transpose(3, 2, 0, 1))} if "wq" in v
+                 else {**v, "w": np.ascontiguousarray(v["w"].transpose(3, 2, 0, 1))})
+             for k, v in jpack.items()}
+    got = make_expert_quant_apply("detection", 10, jscales, dtype=torch.float32, trunk="v1")(
+        _port_expert("detection", variables),
+        prepare_qexpert(qpack, jscales, torch.float32, "cpu", trunk="v1"),
+        torch.from_numpy(x).permute(0, 3, 1, 2))
+    for k in ("class_logits", "bbox_deltas"):
+        g, w = got[k].permute(0, 2, 3, 1).numpy(), np.asarray(want[k])
+        assert g.shape == w.shape
+        close = np.isclose(g, w, rtol=1e-4, atol=1e-4)
+        assert close.mean() > 0.999, (k, 1.0 - close.mean())
+    with pytest.raises(ValueError, match="unknown trunk"):
+        make_expert_quant_apply("detection", 10, jscales, trunk="v2")
 
 
 # ---------------------------------------------------------------------------

@@ -209,8 +209,9 @@ def test_gating_from_config_drops_topk_unless_honored():
 
     cfg = port_config(small_config())
     assert cfg.gating.top_k == 2  # the shipped config asks for top-2 ...
-    gating_network_from_config(cfg, device="cpu")  # ... and the composite drops it
+    dropped = gating_network_from_config(cfg, device="cpu")  # ... the composite drops it
+    assert (dropped.top_k, dropped.apply_topk_at_eval) == (0, False)
     honored = dataclasses.replace(
         cfg, gating=dataclasses.replace(cfg.gating, honor_topk_in_composite=True))
-    with pytest.raises(NotImplementedError):
-        gating_network_from_config(honored, device="cpu")
+    g = gating_network_from_config(honored, device="cpu")  # ... unless honoured
+    assert (g.top_k, g.apply_topk_at_eval, g.noise_scale) == (2, True, cfg.gating.noise_scale)
