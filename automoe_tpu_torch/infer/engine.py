@@ -108,8 +108,10 @@ class InferenceEngine:
               else load_torch_state_dict(ckpt_path))
         return cls(model_config, sd, **kw)
 
-    @torch.inference_mode()
-    def _step(self, frames: torch.Tensor, speeds: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _run(self, frames: torch.Tensor, speeds: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The step's body, uint8 frames [B,H,W,3] and speeds [B,1] on the
+        device → the output dict; `_step` runs it in inference mode, and
+        serving/export.py traces it."""
         image = self._preprocess(frames)
         batch = {"image": image, "speed": speeds.to(self.dtype)}
         # controls are unavailable at inference → zeros (the model's default)
@@ -119,6 +121,10 @@ class InferenceEngine:
             out = self.model(batch)
         return {k: out[k].float() for k in ("waypoints", "speed", "speed_seq",
                                             "expert_weights")}
+
+    @torch.inference_mode()
+    def _step(self, frames: torch.Tensor, speeds: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self._run(frames, speeds)
 
     def warmup(self) -> None:
         """One B=1 zero frame through `infer`, then wait for the device."""

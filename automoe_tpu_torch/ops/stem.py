@@ -9,12 +9,16 @@ JAX kernel takes either.
 K4 `maxpool3x3s2_int8`: the int8 3x3/s2 SAME max-pool alone (port of
 pallas_stem.py::_pool_kernel).
 
-On a CUDA tensor each wrapper launches its hand-written kernel (compiled
-at first use by nvcc into build/torch_ext/, from the sources in this
-package; ops/_ext.py) or raises; on a CPU tensor it runs the plain
-PyTorch version beside it. The plain versions are what the CPU tests hold
-against the JAX package, and what the card's kernels are held against.
-`LAUNCHES` counts kernel launches only.
+Each kernel is a `torch.library` custom op in the `automoe` namespace
+(`torch.ops.automoe.s2d_stem_pool_int8`, `..._f32` for an f32 input,
+`maxpool3x3s2_int8`), so `torch.export` keeps it as one node of a traced
+program (serving/export.py) and a loaded program launches it. On a CUDA
+tensor an op launches its hand-written kernel (compiled at first use by
+nvcc into build/torch_ext/, from the sources in this package; ops/_ext.py)
+or raises; on a CPU tensor it runs the plain PyTorch version beside it.
+The plain versions are what the CPU tests hold against the JAX package,
+and what the card's kernels are held against. `LAUNCHES` counts kernel
+launches only. The public wrappers call the ops.
 """
 from __future__ import annotations
 
@@ -73,10 +77,8 @@ def maxpool3x3s2_int8_plain(x: torch.Tensor) -> torch.Tensor:
     return out.contiguous()
 
 
-def maxpool3x3s2_int8(x: torch.Tensor) -> torch.Tensor:
-    """K4 on CUDA, the plain version on the CPU."""
-    if x.device.type == "cpu":
-        return maxpool3x3s2_int8_plain(x)
+def _maxpool3x3s2_int8_launch(x: torch.Tensor) -> torch.Tensor:
+    """K4 on the card."""
     _check_cuda("maxpool3x3s2_int8", x)
     if x.dtype != torch.int8 or x.ndim != 4 or x.shape[-1] % 16:
         raise ValueError(f"maxpool3x3s2_int8: need int8 [B,H,W,16k], got "
@@ -90,6 +92,25 @@ def maxpool3x3s2_int8(x: torch.Tensor) -> torch.Tensor:
     raise_on(err, "maxpool3x3s2_int8")
     LAUNCHES["maxpool3x3s2_int8"] += 1
     return out
+
+
+@torch.library.custom_op("automoe::maxpool3x3s2_int8", mutates_args=(), device_types="cuda")
+def _maxpool3x3s2_int8_op(x: torch.Tensor) -> torch.Tensor:
+    return _maxpool3x3s2_int8_launch(x)
+
+
+_maxpool3x3s2_int8_op.register_kernel("cpu")(maxpool3x3s2_int8_plain)
+
+
+@_maxpool3x3s2_int8_op.register_fake
+def _(x):
+    B, H, W, C = x.shape
+    return x.new_empty((B, *pool_out_hw(H, W), C), dtype=torch.int8)
+
+
+def maxpool3x3s2_int8(x: torch.Tensor) -> torch.Tensor:
+    """K4 on CUDA, the plain version on the CPU (`automoe::maxpool3x3s2_int8`)."""
+    return torch.ops.automoe.maxpool3x3s2_int8(x)
 
 
 # ---------------------------------------------------------------------------
@@ -118,23 +139,13 @@ def s2d_stem_pool_int8_plain(xs: torch.Tensor, w: torch.Tensor,
     return quantize_int8(pooled, inv.float()[:, None, None]).permute(0, 2, 3, 1).contiguous()
 
 
-#: the kernel of each input dtype: (entry point, LAUNCHES key)
-_STEM_KERNELS = {
-    torch.bfloat16: ("automoe_stem_s2d_pool_int8", "s2d_stem_pool_int8"),
-    torch.float32: ("automoe_stem_s2d_pool_int8_f32", "s2d_stem_pool_int8_f32"),
-}
-
-
-def s2d_stem_pool_int8(xs: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                       inv: torch.Tensor) -> torch.Tensor:
-    """K3 on CUDA (xs and w both bf16, or both f32; bias, inv f32 of either
-    sign), the plain version on the CPU."""
-    if xs.device.type == "cpu":
-        return s2d_stem_pool_int8_plain(xs, w, bias, inv)
-    _check_cuda("s2d_stem_pool_int8", xs, w, bias, inv)
+def _stem_launch(entry: str, key: str, dtype: torch.dtype, xs: torch.Tensor,
+                 w: torch.Tensor, bias: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """K3 on the card through its C entry point for `dtype` inputs."""
+    _check_cuda(key, xs, w, bias, inv)
     B, hp, wp, cin = xs.shape
     O = w.shape[-1]
-    if (xs.dtype not in _STEM_KERNELS or w.dtype != xs.dtype or cin != 12
+    if (xs.dtype != dtype or w.dtype != dtype or cin != 12
             or tuple(w.shape) != (192, O) or O % 64
             or bias.dtype != torch.float32 or inv.dtype != torch.float32
             or bias.numel() != O or inv.numel() != O or hp <= 4 or wp <= 4):
@@ -143,7 +154,6 @@ def s2d_stem_pool_int8(xs: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
             f"f32, bias/inv f32 [O]; got xs {xs.dtype} {tuple(xs.shape)}, "
             f"w {w.dtype} {tuple(w.shape)}, bias {bias.dtype}, inv {inv.dtype}"
         )
-    entry, key = _STEM_KERNELS[xs.dtype]
     out = torch.empty((B, *pool_out_hw(hp - 4, wp - 4), O), dtype=torch.int8,
                       device=xs.device)
     err = getattr(build(), entry)(
@@ -154,3 +164,40 @@ def s2d_stem_pool_int8(xs: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     raise_on(err, key)
     LAUNCHES[key] += 1
     return out
+
+
+def _stem_fake(xs, w, bias, inv):
+    B, hp, wp, _ = xs.shape
+    return xs.new_empty((B, *pool_out_hw(hp - 4, wp - 4), w.shape[-1]), dtype=torch.int8)
+
+
+@torch.library.custom_op("automoe::s2d_stem_pool_int8", mutates_args=(), device_types="cuda")
+def _s2d_stem_pool_int8_op(xs: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                           inv: torch.Tensor) -> torch.Tensor:
+    """K3 on the card, xs and w bf16."""
+    return _stem_launch("automoe_stem_s2d_pool_int8", "s2d_stem_pool_int8", torch.bfloat16,
+                        xs, w, bias, inv)
+
+
+@torch.library.custom_op("automoe::s2d_stem_pool_int8_f32", mutates_args=(),
+                         device_types="cuda")
+def _s2d_stem_pool_int8_f32_op(xs: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                               inv: torch.Tensor) -> torch.Tensor:
+    """K3 on the card, xs and w f32."""
+    return _stem_launch("automoe_stem_s2d_pool_int8_f32", "s2d_stem_pool_int8_f32",
+                        torch.float32, xs, w, bias, inv)
+
+
+for _op in (_s2d_stem_pool_int8_op, _s2d_stem_pool_int8_f32_op):
+    _op.register_kernel("cpu")(s2d_stem_pool_int8_plain)
+    _op.register_fake(_stem_fake)
+
+
+def s2d_stem_pool_int8(xs: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                       inv: torch.Tensor) -> torch.Tensor:
+    """K3 on CUDA (xs and w both bf16, or both f32; bias, inv f32 of either
+    sign), the plain version on the CPU: `automoe::s2d_stem_pool_int8_f32`
+    for an f32 xs, else `automoe::s2d_stem_pool_int8`."""
+    op = (torch.ops.automoe.s2d_stem_pool_int8_f32 if xs.dtype == torch.float32
+          else torch.ops.automoe.s2d_stem_pool_int8)
+    return op(xs, w, bias, inv)

@@ -1,6 +1,8 @@
 """`automoe-serve-torch`: TCP micro-batching model server on the PyTorch
 port (serving/server.py; `serving.Client` is the reference client).
 
+  automoe-serve-torch --bundle exported_bundle/    # cold start: the exported
+                                                   # programs only (serving/export.py)
   automoe-serve-torch --checkpoint automoe.pth     # reference torch ckpt
   automoe-serve-torch --checkpoint checkpoints/gating/run/best.pt --quantize
                                                    # a checkpoint automoe-train-torch wrote
@@ -9,7 +11,8 @@ port (serving/server.py; `serving.Client` is the reference client).
   automoe-serve-torch --quantize                   # int8 trunks, random init
   automoe-serve-torch --device cpu                 # no GPU
 
-Runs on `cuda` unless --device names another device.
+Runs on `cuda` unless --device names another device; a bundle runs on
+the device it was traced on.
 """
 from __future__ import annotations
 
@@ -42,6 +45,14 @@ def load_engine(model_config, checkpoint: Optional[str], ema: bool, **kw):
 
 
 def build_engine(args):
+    if args.bundle:
+        if args.ema:
+            raise SystemExit("--ema applies at export time for bundles: pass prefer_ema "
+                             "when building the bundle's engine instead")
+        from automoe_tpu_torch.serving.export import ArtifactEngine
+
+        return ArtifactEngine(args.bundle)
+
     import torch
 
     return load_engine(
@@ -56,6 +67,10 @@ def build_engine(args):
 
 def main(argv: Optional[Sequence[str]] = None, block: bool = True):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--bundle", default=None,
+                   help="save_serving_bundle dir: serve its exported programs, no model "
+                        "code or calibration at start-up; they run on the device they were "
+                        "traced on (--device is ignored)")
     p.add_argument("--model-config", default=None)
     p.add_argument("--checkpoint", default=None,
                    help="AutoMoE torch checkpoint: a reference .pth or a gating checkpoint "
@@ -75,17 +90,21 @@ def main(argv: Optional[Sequence[str]] = None, block: bool = True):
     p.add_argument("--pipeline-depth", type=int, default=1,
                    help=">=2 overlaps the next batch's upload and enqueue "
                         "with the current batch's device step and fetch; "
-                        "1 = serial worker")
+                        "1 = serial worker. Engines without dispatch_batch "
+                        "(--bundle) fall back to serial")
     p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; 'cpu' to run without a GPU)")
+                   help="torch device (default cuda; 'cpu' to run without a GPU); "
+                        "ignored with --bundle")
     args = p.parse_args(argv)
 
     from automoe_tpu_torch.serving.server import BatchingServer, serve_tcp
 
     engine = build_engine(args)
+    buckets = getattr(engine, "buckets", None)  # a bundle pins them
+    max_batch = min(args.max_batch, max(buckets)) if buckets else args.max_batch
     batcher = BatchingServer(
-        engine, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-        pipeline_depth=args.pipeline_depth,
+        engine, max_batch=max_batch, max_wait_ms=args.max_wait_ms,
+        buckets=buckets, pipeline_depth=args.pipeline_depth,
     ).start()
     srv = serve_tcp(batcher, host=args.host, port=args.port)
     host, port = srv.server_address[:2]

@@ -19,8 +19,11 @@ gating's `--cache-expert-features`, `--feature-cache-dir` and
 `--device-resident`, with the JAX CLI's guards. Where the JAX CLI gives an
 option no effect (--remat and --qat for policy and gating, --augment where
 the workload has none), the port says so. The mesh and multi-host flags,
-a few policy and gating flags and the `preset` subcommand exit with "not
-ported yet"; none is silently ignored. As in the JAX CLI,
+and a few policy and gating flags exit with "not ported yet"; none is
+silently ignored. `preset <name-or-path> [overrides...]` expands one of
+the JSON run configs in automoe_tpu_torch/configs/presets/ (the JAX
+package's, byte for byte; `preset --list` names them) into its
+subcommand's flags, the trailing overrides last. As in the JAX CLI,
 segmentation and drivable take no box cap and run no matcher, and
 nuscenes-2d always matches exactly (matcher 'hungarian'), so
 `--box-cap` / `--matcher` have no effect there. `--device` (default
@@ -31,13 +34,13 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+from pathlib import Path
 from typing import Dict
 
 from automoe_tpu_torch.train import workloads as W
 from automoe_tpu_torch.train.loop import TrainConfig, Trainer
 
-#: the JAX CLI's subcommands and flags this port does not have yet
-_NOT_PORTED_COMMANDS = ("preset",)
+#: the JAX CLI's flags this port does not have yet
 _NOT_PORTED_FLAGS = (
     "--no-mesh", "--model-axis", "--spatial", "--tp-min-dim",
     "--multihost", "--coordinator", "--num-processes", "--process-id",
@@ -384,10 +387,44 @@ def cmd_gating(args):
     return trainer.fit(_args_dump(args))
 
 
+PRESET_DIR = Path(__file__).resolve().parents[1] / "configs" / "presets"
+
+
+def _expand_preset(argv):
+    """`preset <name-or-path> [overrides...]` → the subcommand's argv.
+
+    Presets are JSON run configs (configs/presets/): `pipeline` names the
+    subcommand, every other key a flag (true booleans as bare flags, false
+    ones dropped, dicts as JSON). Trailing args override preset keys
+    (argparse: the last one wins). `--list` / `-l`, or no name, prints the
+    presets' names and exits."""
+    if len(argv) < 2 or argv[1] in ("--list", "-l"):
+        for f in sorted(PRESET_DIR.glob("*.json")):
+            print(f.stem)
+        raise SystemExit(0)
+    path = Path(argv[1])
+    if not path.exists():
+        path = PRESET_DIR / argv[1]
+        if not path.suffix:
+            path = path.with_suffix(".json")
+    cfg = json.loads(path.read_text())
+    out = [cfg.pop("pipeline")]
+    for key, val in cfg.items():
+        flag = "--" + key.replace("_", "-")
+        if isinstance(val, bool):
+            if val:
+                out.append(flag)
+        elif isinstance(val, dict):
+            out += [flag, json.dumps(val)]
+        else:
+            out += [flag, str(val)]
+    return out + list(argv[2:])
+
+
 def main(argv=None):
     argv = list(argv) if argv is not None else sys.argv[1:]
-    if argv and argv[0] in _NOT_PORTED_COMMANDS:
-        raise SystemExit(f"automoe-train-torch: {argv[0]} is not ported yet")
+    if argv and argv[0] == "preset":
+        argv = _expand_preset(argv)
     p = argparse.ArgumentParser("automoe-train-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     tasks = ["detection", "segmentation", "drivable"]

@@ -160,6 +160,25 @@ Phases, each of which must pass (none is caught):
      (apply_topk_at_eval), f32, B=8, card against CPU (rtol 1e-3 / atol
      1e-4, two experts chosen a frame). Each prints its p50 inference time
      (host clock of `engine.infer`) and launches.
+ 18. export bundles (serving/export.py), the stem kernels as torch.library
+     ops inside traced programs, at full width: (a) `save_serving_bundle`
+     (buckets 1 and 8) of four engines (bf16; int8, K3; int8 --fp32, K3's
+     f32 kernel; int8 with the "pool" stem, K4), each loaded through
+     `ArtifactEngine` and held against its live engine on the same frames
+     at B=8 and B=1 (f32 engines rtol 1e-5 / atol 1e-6, bf16 ones 1e-2:
+     BUNDLE_TOL), its stem kernel launched once per bundle batch; the live
+     engine's build, the export, the load, the first batch and each one's
+     B=8 step time (host clock), the bundle's size; (b) `automoe-serve-torch
+     --bundle <int8>` answers 4 TCP requests (K3 once per server batch) and
+     `--bundle --ema` exits non-zero; (c) cold start, each in a fresh
+     process: the live int8 engine (calibration included) against its
+     bundle, imports and CUDA start-up, build or load, first B=8 batch, the
+     bundle's process importing no model code; (d) `FusedAutoMoE` against
+     `AutoMoE` on the same fused weights (default config, 256x256, B=8):
+     f32 with TF32 off (rtol 1e-4 / atol 1e-5), then bf16 (phase 6's
+     bound), each forward's time from CUDA events; (e) the host cost of a
+     call through the custom ops against their CUDA bodies called
+     directly (K3 bf16 and K4, B=8, host clock, median of 100 calls).
 
 Prints the card's name and power limit, one JSON line of kernel results,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a CUDA
@@ -1364,6 +1383,233 @@ def phase_closed_loop(tmp: Path, gating_best: Path, frames, speeds):
     return out
 
 
+#: the bundles of phase 18: name → (InferenceEngine options, the stem kernel its
+#: program launches, the outputs' tolerance against the live engine)
+BUNDLES = {
+    "bf16": ({}, None, "bf16"),
+    "int8": ({"quantize": True}, "s2d_stem_pool_int8", "bf16"),
+    "int8 --fp32": ({"quantize": True, "dtype": "float32"}, "s2d_stem_pool_int8_f32", "f32"),
+    "int8 pool stem": ({"quantize": True, "stem_variant": "pool"}, "maxpool3x3s2_int8", "bf16"),
+}
+#: a bundle runs the live engine's aten ops and kernels on the same inputs, so
+#: its outputs should be equal; an f32 engine's are held within f32 round-off,
+#: a bf16 engine's within one bf16 rounding step (2^-8) of their scale, which
+#: another cuDNN or cuBLAS algorithm for the same call could give
+BUNDLE_TOL = {"f32": dict(rtol=1e-5, atol=1e-6), "bf16": dict(rtol=1e-2, atol=1e-2)}
+
+#: 18c: the int8 engine built live, and its bundle loaded, each in a fresh
+#: process: {stage: seconds from the process's start}, the waypoints of B=8
+COLD_LIVE = """
+import time; t0 = time.perf_counter()
+import json, sys, numpy as np, torch
+from automoe_tpu_torch.configs import default_model_config
+from automoe_tpu_torch.infer import InferenceEngine
+frames, speeds, calib = (np.load(sys.argv[1] + n) for n in ("/frames.npy", "/speeds.npy", "/calib.npy"))
+torch.cuda.init(); t1 = time.perf_counter()
+eng = InferenceEngine(default_model_config(), device="cuda", quantize=True, calib_frames=calib)
+torch.cuda.synchronize(); t2 = time.perf_counter()
+out = eng.infer_batch(frames, speeds); t3 = time.perf_counter()
+print(json.dumps({"imports_and_cuda_init_s": t1 - t0, "build_s": t2 - t1, "first_batch_s": t3 - t2,
+                  "total_s": t3 - t0, "waypoints": out["waypoints"].tolist()}))
+"""
+COLD_BUNDLE = """
+import time; t0 = time.perf_counter()
+import json, sys, numpy as np, torch
+from automoe_tpu_torch.serving.export import ArtifactEngine
+frames, speeds = (np.load(sys.argv[1] + n) for n in ("/frames.npy", "/speeds.npy"))
+torch.cuda.init(); t1 = time.perf_counter()
+art = ArtifactEngine(sys.argv[2]); t2 = time.perf_counter()
+out = art.infer_batch(frames, speeds); t3 = time.perf_counter()
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "automoe_tpu")
+       or m.startswith(("automoe_tpu_torch.models", "automoe_tpu_torch.infer",
+                        "automoe_tpu_torch.serving.quant"))]
+assert not bad, bad
+print(json.dumps({"imports_and_cuda_init_s": t1 - t0, "load_s": t2 - t1, "first_batch_s": t3 - t2,
+                  "total_s": t3 - t0, "waypoints": out["waypoints"].tolist()}))
+"""
+
+
+def fresh_process(code: str, *args) -> dict:
+    """`code` in a new python process from the checkout; its last line of
+    output is JSON."""
+    res = subprocess.run([sys.executable, "-c", code, *map(str, args)], capture_output=True,
+                         text=True, timeout=600, cwd=Path(__file__).resolve().parent)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def phase_bundles(tmp: Path, frames, speeds, calib, smi: str):
+    """18: (a) a bundle (buckets 1 and 8) of each engine of BUNDLES, loaded
+    through ArtifactEngine and held against the live engine at B=8 and B=1,
+    its stem kernel launched once per bundle batch; (b) automoe-serve-torch
+    --bundle; (c) cold start in fresh processes."""
+    import torch
+
+    from automoe_tpu_torch.configs import default_model_config
+    from automoe_tpu_torch.infer import InferenceEngine
+    from automoe_tpu_torch.ops import stem
+    from automoe_tpu_torch.serving.cli import main as serve_main
+    from automoe_tpu_torch.serving.export import ArtifactEngine, save_serving_bundle
+
+    cfg = default_model_config()
+    out = {"card": smi}
+    for name, (kw, kernel, tol) in BUNDLES.items():
+        kw = {k: getattr(torch, v) if k == "dtype" else v for k, v in kw.items()}
+        t0 = time.perf_counter()
+        eng = InferenceEngine(cfg, device="cuda", calib_frames=calib, **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        want = {8: eng.infer_batch(frames, speeds), 1: eng.infer_batch(frames[:1], speeds[:1])}
+        live_ms = step_ms(eng, frames, speeds)
+        d = tmp / name.replace(" ", "_")
+        t0 = time.perf_counter()
+        save_serving_bundle(eng, d, buckets=(1, 8))
+        export_s = time.perf_counter() - t0
+        del eng
+        t0 = time.perf_counter()
+        art = ArtifactEngine(d)
+        load_s = time.perf_counter() - t0
+        stem.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = {8: art.infer_batch(frames, speeds)}
+        first_s = time.perf_counter() - t0
+        got[1] = art.infer_batch(frames[:1], speeds[:1])
+        counts = dict(stem.LAUNCHES)
+        launches = counts.pop(kernel) if kernel else 0
+        assert launches == (2 if kernel else 0) and not any(counts.values()), (name, counts)
+        err = {}
+        for b in (8, 1):
+            check_outputs(got[b], b, cfg)
+            for k, v in want[b].items():
+                np.testing.assert_allclose(got[b][k], v, **BUNDLE_TOL[tol], err_msg=f"{name} {k}")
+                err[k] = max(err.get(k, 0.0), float(np.abs(got[b][k] - v).max()))
+        out[name] = dict(kernel=kernel, launches=launches, max_abs_err=err, tolerance=tol,
+                         live_build_s=build_s, export_s=export_s, load_s=load_s,
+                         first_batch_s=first_s, bundle_mb=sum(
+                             f.stat().st_size for f in d.iterdir()) / 2**20,
+                         bundle_step_ms_b8=step_ms(art, frames, speeds), live_step_ms_b8=live_ms)
+        print(f"phase 18a {name}: {out[name]}", flush=True)
+        del art
+        torch.cuda.empty_cache()
+
+    # (b) the int8 bundle behind the TCP server; --ema is refused
+    int8 = tmp / "int8"
+    n_batches, k3 = serve_four(["--bundle", str(int8)], frames, speeds)
+    try:
+        serve_main(["--bundle", str(int8), "--ema", "--port", "0"], block=False)
+        raise AssertionError("--bundle --ema served")
+    except SystemExit as e:
+        assert e.code not in (0, None), e.code
+    out["serve --bundle"] = {"batches": n_batches, "k3_launches": k3, "buckets": [1, 8]}
+    print(f"phase 18b serve --bundle: {out['serve --bundle']}", flush=True)
+
+    # (c) cold start: the live int8 engine (calibration included) against its
+    # bundle, each from a fresh process
+    for n, a in (("frames", frames), ("speeds", speeds), ("calib", calib)):
+        np.save(tmp / f"{n}.npy", a)
+    live = fresh_process(COLD_LIVE, tmp)
+    cold = fresh_process(COLD_BUNDLE, tmp, int8)
+    np.testing.assert_allclose(cold.pop("waypoints"), live.pop("waypoints"),
+                               **BUNDLE_TOL["bf16"])
+    out["cold start, int8"] = {"live engine": live, "bundle": cold}
+    print(f"phase 18c cold start ({smi}): {out['cold start, int8']}", flush=True)
+    return out
+
+
+def custom_op_host_us(stem, gen, calls: int = 100) -> dict:
+    """18e: host microseconds a call of K3 (bf16, B=8) and K4 (B=8) through
+    their torch.library ops against the ops' CUDA bodies called directly
+    (the same checks and launch, no dispatcher): the median over `calls`
+    calls of each, host clock around the call (the launch is asynchronous),
+    in four interleaved blocks (op, direct, direct, op)."""
+    import torch
+
+    args = stem_inputs(B_MAIN, gen)
+    x = torch.randint(0, 128, (B_MAIN, 128, 128, 256), device="cuda", dtype=torch.int8,
+                      generator=gen)
+    cases = {
+        "s2d_stem_pool_int8": (
+            lambda: torch.ops.automoe.s2d_stem_pool_int8(*args),
+            lambda: stem._stem_launch("automoe_stem_s2d_pool_int8", "s2d_stem_pool_int8",
+                                      torch.bfloat16, *args)),
+        "maxpool3x3s2_int8": (lambda: torch.ops.automoe.maxpool3x3s2_int8(x),
+                              lambda: stem._maxpool3x3s2_int8_launch(x)),
+    }
+    out = {}
+    for name, (op, direct) in cases.items():
+        times = {"op": [], "direct": []}
+        for kind in ("op", "direct", "direct", "op"):
+            fn = op if kind == "op" else direct
+            fn()
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                t0 = time.perf_counter()
+                fn()
+                times[kind].append((time.perf_counter() - t0) * 1e6)
+            torch.cuda.synchronize()
+        out[name] = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"phase 18e custom op host cost, us a call: {out}", flush=True)
+    return out
+
+
+def phase_fused(smi: str):
+    """18d: FusedAutoMoE against AutoMoE on the same fused weights at the
+    default config, 256x256, B=8: f32 with TF32 off (rtol 1e-4 / atol 1e-5:
+    the grouped and the separate convs sum in another order), then bf16
+    (phase 6's low-precision bound: waypoints within 3% mean relative
+    error, expert weights within 0.05); each forward's time from CUDA
+    events (mean of 10 after 3 warm-ups)."""
+    import torch
+
+    from automoe_tpu_torch.configs import default_model_config
+    from automoe_tpu_torch.models import create_automoe_model
+    from automoe_tpu_torch.models.fused_experts import (
+        create_fused_automoe_model,
+        fuse_automoe_state_dict,
+    )
+
+    cfg = default_model_config()
+    model = create_automoe_model(cfg, device="cuda", seed=SEED)
+    g = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():  # running statistics away from their identity init
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.1)
+                m.running_var.copy_(torch.rand(m.running_var.shape, generator=g) + 0.5)
+    fused = create_fused_automoe_model(cfg, fuse_automoe_state_dict(model.state_dict(), cfg),
+                                       device="cuda")
+    rng = np.random.default_rng(SEED + 18)
+    image = torch.from_numpy(rng.normal(size=(B_MAIN, 256, 256, 3)).astype(np.float32))
+    speed = torch.from_numpy(rng.uniform(0, 30, (B_MAIN, 1)).astype(np.float32))
+    keys = ("waypoints", "speed_seq", "expert_weights", "combined_features", "gate_logits")
+    out = {"card": smi, "batch": B_MAIN}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            model, fused = model.to(dtype), fused.to(dtype)
+            batch = {"image": image.to("cuda", dtype), "speed": speed.to("cuda", dtype)}
+            with torch.no_grad():
+                a, b = model(batch), fused(batch)
+                ms = {"automoe_ms": cuda_ms(lambda: model(batch), iters=10),
+                      "fused_ms": cuda_ms(lambda: fused(batch), iters=10)}
+            a = {k: a[k].float().cpu().numpy() for k in keys}
+            b = {k: b[k].float().cpu().numpy() for k in keys}
+            err = {k: float(np.abs(a[k] - b[k]).max()) for k in keys}
+            if dtype == torch.float32:
+                for k in keys:
+                    np.testing.assert_allclose(b[k], a[k], rtol=1e-4, atol=1e-5, err_msg=k)
+            else:
+                wp = rel_err(a["waypoints"], b["waypoints"])
+                assert wp < 0.03 and err["expert_weights"] < 0.05, (wp, err)
+                err["waypoints_rel"] = wp
+            out[str(dtype).split(".")[-1]] = dict(ms, max_abs_err=err)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    print(f"phase 18d FusedAutoMoE vs AutoMoE: {out}", flush=True)
+    return out
+
+
 def rel_err(a, b) -> float:
     a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
     return float(np.abs(a - b).mean() / (np.abs(a).mean() + 1e-12))
@@ -1556,6 +1802,14 @@ def main() -> int:
                                  speeds)
     tmp12.cleanup()
 
+    # 18. export bundles against the live engines, the server on a bundle, cold
+    # start; then FusedAutoMoE against AutoMoE
+    print(smi, flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        bundles = phase_bundles(Path(tmp), frames, speeds, calib, smi)
+    bundles["fused"] = phase_fused(smi)
+    bundles["custom_op_host_us_b8"] = custom_op_host_us(stem, gen)
+
     src = "automoe_tpu_torch/csrc/stem.cu"
     main_, big = k3[B_MAIN], k3[128]
     kernels = [{
@@ -1584,7 +1838,11 @@ def main() -> int:
                              "serve the cached, device-resident gating checkpoint (phase 15e)":
                                  fast["e"]["k3_launches"],
                              "automoe-infer-torch --quantize, 200 steps at B=1 (phase 17)":
-                                 loop["b --quantize"]["launches"]["s2d_stem_pool_int8"]},
+                                 loop["b --quantize"]["launches"]["s2d_stem_pool_int8"],
+                             "the int8 bundle, a batch of 8 and one of 1 (phase 18a)":
+                                 bundles["int8"]["launches"],
+                             "automoe-serve-torch --bundle <int8 bundle> (phase 18b)":
+                                 bundles["serve --bundle"]["k3_launches"]},
         "b128": {k: big[k] for k in ("ms", "ms_blocks", "wrapper_ms", "plain_ms", "unfused_ms",
                                      "bound_ms", "max_abs_err", "diff_frac",
                                      "mixed_sign_inv_max_abs_err",
@@ -1637,7 +1895,9 @@ def main() -> int:
             "automoe-eval-torch gating --quantize, 2 batches of 32 (phase 16)":
                 evals["gating --quantize"]["launches"]["s2d_stem_pool_int8_f32"],
             "automoe-serve-torch --quantize --fp32 (phase 16)":
-                evals["serve --quantize --fp32"]["k3_f32_launches"]},
+                evals["serve --quantize --fp32"]["k3_f32_launches"],
+            "the int8 --fp32 bundle, a batch of 8 and one of 1 (phase 18a)":
+                bundles["int8 --fp32"]["launches"]},
         "b8": {k: small[k] for k in ("ms", "ms_blocks", "wrapper_ms", "plain_ms", "bound_ms",
                                      "bound_by", "max_abs_err", "diff_frac",
                                      "mixed_sign_inv_max_abs_err",
@@ -1655,7 +1915,9 @@ def main() -> int:
         "library_ms": None,
         "shape_batch": B_MAIN, "ms_blocks": main_["ms_blocks"],
         "wrapper_ms": main_["wrapper_ms"],
-        "launches_by_path": {"int8 engine, pool stem (phase 6)": launches["maxpool3x3s2_int8"]},
+        "launches_by_path": {"int8 engine, pool stem (phase 6)": launches["maxpool3x3s2_int8"],
+                             "the int8 pool-stem bundle, a batch of 8 and one of 1 (phase 18a)":
+                                 bundles["int8 pool stem"]["launches"]},
         "b128": {k: big[k] for k in ("ms", "ms_blocks", "wrapper_ms", "plain_ms", "bound_ms",
                                      "max_abs_err", "diff_frac")},
     })
@@ -1709,6 +1971,7 @@ def main() -> int:
     print(json.dumps({"fast_data": fast}), flush=True)
     print(json.dumps({"eval_cli": evals}), flush=True)
     print(json.dumps({"closed_loop": loop}), flush=True)
+    print(json.dumps({"bundles": bundles}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

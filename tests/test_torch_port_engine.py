@@ -140,7 +140,9 @@ def test_package_imports_without_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'automoe_tpu' or m.startswith('automoe_tpu.')]\n"
         "assert not bad, bad\n"
-        "assert 'automoe_tpu_torch.evals.cli' in names and len(names) >= 74, names\n"
+        "assert 'automoe_tpu_torch.evals.cli' in names and len(names) >= 76, names\n"
+        "assert {'automoe_tpu_torch.serving.export', 'automoe_tpu_torch.models.fused_experts'}"
+        " <= set(names), names\n"
         "assert {'automoe_tpu_torch.infer.' + m for m in ('sim', 'run_automoe', 'carla_sim')}"
         " <= set(names), names\n"
         "print(len(names))\n"
