@@ -1,4 +1,5 @@
 from automoe_tpu_torch.ckpt.from_jax import (  # noqa: F401
+    deep_policy_state_dict_from_jax,
     expert_state_dict_from_jax,
     gating_state_dict_from_jax,
     load_torch_state_dict,

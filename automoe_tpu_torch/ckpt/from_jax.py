@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from automoe_tpu_torch.configs import load_model_config
+from automoe_tpu_torch.models.deep_policy import PIPELINE_BLOCKS
 
 
 def _t(x) -> torch.Tensor:
@@ -194,6 +195,30 @@ def policy_state_dict_from_jax(variables_np: Dict[str, Any]) -> Dict[str, torch.
     (numpy leaves) → the port's TrajectoryPolicy state dict."""
     sink = _Sink()
     _policy(sink, "", variables_np["params"], variables_np.get("batch_stats", {}))
+    return sink.out
+
+
+def deep_policy_state_dict_from_jax(variables_np: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX DeepTrajectoryPolicy's `{"params"}` (numpy leaves) → the
+    port's DeepTrajectoryPolicy state dict: the stem conv HWIO → OIHW,
+    its GroupNorm affine [1,1,C] → [C], the stacked trunk's convs
+    [L,3,3,C,C] → [L,C,C,3,3] and its GroupNorm leaves [L,1,1,1,C] →
+    [L,C], then `fc` and the heads."""
+    p = variables_np["params"]
+    sink = _Sink()
+    sink.conv("stem_conv", p["stem_conv"])
+    sink.out["stem_gn.weight"] = _t(np.asarray(p["stem_gn_scale"]).reshape(-1))
+    sink.out["stem_gn.bias"] = _t(np.asarray(p["stem_gn_bias"]).reshape(-1))
+    blocks = p[PIPELINE_BLOCKS]
+    for k in ("conv1", "conv2"):
+        sink.out[f"{PIPELINE_BLOCKS}.{k}"] = _t(np.asarray(blocks[k]).transpose(0, 4, 3, 1, 2))
+    for k in ("gn1_scale", "gn1_bias", "gn2_scale", "gn2_bias"):
+        leaf = np.asarray(blocks[k])
+        sink.out[f"{PIPELINE_BLOCKS}.{k}"] = _t(leaf.reshape(leaf.shape[0], -1))
+    sink.linear("fc", p["fc"])
+    for head in ("head_wp", "head_spd"):
+        for j, fc in ((0, "fc1"), (2, "fc2"), (4, "fc3")):
+            sink.linear(f"{head}.{j}", p[head][fc])
     return sink.out
 
 

@@ -279,11 +279,14 @@ def automoe_context_weights(model: AutoMoE, batch: Dict[str, Any]) -> torch.Tens
 @torch.no_grad()
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded re-init with torch's default distributions (Linear/Conv:
-    U(±1/sqrt(fan_in)); Embedding: N(0,1); norms: ones/zeros). Values are
-    drawn on the CPU from `generator`, so a seed gives the same weights on
-    every device."""
+    U(±1/sqrt(fan_in)); Embedding: N(0,1); norms: ones/zeros); a module
+    with its own `seeded_init(generator)` (the deep policy's stacked
+    trunk) draws its parameters there. Values are drawn on the CPU from
+    `generator`, so a seed gives the same weights on every device."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+        if hasattr(m, "seeded_init"):
+            m.seeded_init(generator)
+        elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             m.weight.copy_(torch.empty(m.weight.shape).uniform_(-bound, bound, generator=generator))
             if m.bias is not None:

@@ -36,13 +36,19 @@ every process.
 
 (--train/--val count frames; carla-sequence splits them over --runs runs.)
 `nuscenes_batch` builds one nuScenes batch in memory, as the loader gives
-it, for the profiling and card-vs-CPU checks.
+it, for the profiling and card-vs-CPU checks. `synth_raw_carla` writes
+collector-output episodes (images, segmentation, annotations, LiDAR,
+vehicle_log.json, config.json) for tools/preprocess_carla.py, and
+`synth_bdd` the BDD caches of one task with PNG frames (the JAX package's
+two writers, which tools/campaign.py starts from).
 """
 from __future__ import annotations
 
 import argparse
+import json
+import zlib
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -268,6 +274,206 @@ def nuscenes_batch(rng: np.random.Generator, B: int, *, size: int = 256, points:
             "lidar": lidar.astype(np.float32),
             "boxes": (rng.normal(size=(B, nbox, 7)) * 3).astype(np.float32),
             "labels": labels}
+
+
+# The two writers the staged program (tools/campaign.py) starts from, with
+# the JAX package's scenes: solid class colours on a textured background.
+
+def _rect(rng, H, W, lo=0.1, hi=0.6):
+    """Random box [x1,y1,x2,y2] covering lo..hi of each dim."""
+    w = int(rng.uniform(lo, hi) * W)
+    h = int(rng.uniform(lo, hi) * H)
+    x1 = int(rng.uniform(0, W - w))
+    y1 = int(rng.uniform(0, H - h))
+    return x1, y1, x1 + w, y1 + h
+
+
+# one distinct RGB per class id (stable signal for the class head)
+_PALETTE = np.array(
+    [[220, 40, 40], [40, 220, 40], [40, 40, 220], [220, 220, 40],
+     [220, 40, 220], [40, 220, 220], [240, 140, 20], [140, 20, 240],
+     [20, 240, 140], [128, 128, 128], [200, 90, 60], [60, 200, 90],
+     [90, 60, 200], [230, 230, 230], [30, 90, 160], [160, 30, 90],
+     [90, 160, 30], [10, 10, 10], [180, 180, 60]], np.uint8)
+
+
+def _scene(rng, H, W, n_boxes, num_classes) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A textured background with class-colored filled rectangles.
+    Returns (image u8 [H,W,3], bboxes f32 [n,4] xyxy, labels i64 [n])."""
+    img = rng.integers(60, 90, (H, W, 3)).astype(np.uint8)
+    img += (np.linspace(0, 40, W, dtype=np.uint8)[None, :, None])
+    boxes, labels = [], []
+    for _ in range(n_boxes):
+        x1, y1, x2, y2 = _rect(rng, H, W, 0.1, 0.45)
+        c = int(rng.integers(0, num_classes))
+        img[y1:y2, x1:x2] = _PALETTE[c % len(_PALETTE)]
+        boxes.append([x1, y1, x2, y2])
+        labels.append(c)
+    b = (np.asarray(boxes, np.float32) if boxes
+         else np.zeros((0, 4), np.float32))
+    return img, b, np.asarray(labels, np.int64)
+
+
+def synth_bdd(
+    out_root,
+    *,
+    task: str,
+    n_per_split: Dict[str, int] = None,
+    size: int = 256,
+    num_classes: int = None,
+    seed: int = 0,
+) -> Path:
+    """Write a BDD-format cache for `task` under out_root/<task>/.
+
+    detection → {split}/NNNNN.pt {image_path, bboxes, labels}
+    segmentation/drivable → {split}/NNNNN.pt {image_path, mask_path}
+    (schemas: data/datasets.py BDD*Dataset; reference
+    dataloaders/bdd_*_loader.py). A seed gives the same files in every
+    process; they differ from the JAX package's writer, whose generator
+    is keyed by python's per-process string hash."""
+    from PIL import Image
+
+    n_per_split = n_per_split or {"train": 64, "val": 16}
+    num_classes = num_classes or {"detection": 10, "segmentation": 19,
+                                  "drivable": 3}[task]
+    root = Path(out_root) / task
+    imgdir = root / "imgs"
+    imgdir.mkdir(parents=True, exist_ok=True)
+    maskdir = root / "masks"
+    if task != "detection":
+        maskdir.mkdir(parents=True, exist_ok=True)
+    # a stable digest of the task (the JAX package's hash(task) changes
+    # between processes)
+    rng = np.random.default_rng((seed, zlib.crc32(task.encode()) & 0xFFFF))
+    H = W = size
+    for split, n in n_per_split.items():
+        d = root / split
+        d.mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            name = f"{split}_{i:05d}"
+            if task == "detection":
+                img, bboxes, labels = _scene(
+                    rng, H, W, int(rng.integers(1, 6)), num_classes
+                )
+                Image.fromarray(img).save(imgdir / f"{name}.png")
+                torch.save(
+                    {"image_path": str(imgdir / f"{name}.png"),
+                     "bboxes": torch.from_numpy(bboxes),
+                     "labels": torch.from_numpy(labels)},
+                    d / f"{i:05d}.pt",
+                )
+            else:
+                img, bboxes, labels = _scene(
+                    rng, H, W, int(rng.integers(2, 6)), num_classes
+                )
+                mask = np.zeros((H, W), np.uint8)
+                if task == "drivable":
+                    # a road wedge (class 1) + alternative lane (class 2)
+                    y0 = int(H * rng.uniform(0.4, 0.6))
+                    mask[y0:, :] = 1
+                    xm = int(W * rng.uniform(0.3, 0.7))
+                    mask[y0:, xm:] = 2
+                    img[y0:, :xm] = [90, 90, 100]
+                    img[y0:, xm:] = [120, 120, 90]
+                else:
+                    for (x1, y1, x2, y2), c in zip(
+                        bboxes.astype(int), labels
+                    ):
+                        mask[y1:y2, x1:x2] = c % num_classes
+                Image.fromarray(img).save(imgdir / f"{name}.png")
+                Image.fromarray(mask).save(maskdir / f"{name}.png")
+                torch.save(
+                    {"image_path": str(imgdir / f"{name}.png"),
+                     "mask_path": str(maskdir / f"{name}.png")},
+                    d / f"{i:05d}.pt",
+                )
+    return root
+
+
+def synth_raw_carla(
+    out_dir,
+    *,
+    runs: Sequence[str] = ("run_001", "run_002"),
+    n_frames: int = 24,
+    hw: Tuple[int, int] = (600, 800),
+    seed: int = 0,
+) -> Path:
+    """Collector-output-format (S1) episodes with a smooth curved
+    trajectory: location follows a sinusoid, yaw its tangent, steer its
+    curvature, speed varies — so preprocess_carla's ego-frame waypoints
+    and the control targets are non-degenerate. Format mirrors
+    tools/collect_carla.py's output (reference inference/run_automoe.py &
+    datasets/carla/* layout). Byte for byte the JAX package's files for a
+    seed."""
+    from PIL import Image
+
+    out = Path(out_dir)
+    H, W = hw
+    for ri, r in enumerate(runs):
+        rng = np.random.default_rng((seed, ri))
+        run = out / r
+        for sub in ("images/front", "segmentation/front", "annots/front",
+                    "lidar"):
+            (run / sub).mkdir(parents=True, exist_ok=True)
+        amp = rng.uniform(3.0, 8.0)
+        wave = rng.uniform(0.05, 0.12)
+        frames = []
+        for t in range(n_frames):
+            fname = f"{t:06d}.png"
+            img, bboxes, labels = _scene(rng, H, W, 3, 10)
+            Image.fromarray(img).save(run / "images" / "front" / fname)
+            seg = np.zeros((H, W), np.uint8)
+            seg[int(H * 0.55):, :] = 7  # CARLA road id
+            seg[: int(H * 0.3), :] = 11  # sky-ish
+            for (x1, y1, x2, y2), c in zip(bboxes.astype(int), labels):
+                seg[y1:y2, x1:x2] = 1 + (c % 12)
+            Image.fromarray(seg).save(run / "segmentation" / "front" / fname)
+            boxes = [
+                {"bbox": [float(x1), float(y1), float(x2), float(y2)],
+                 "label": "vehicle"}
+                for (x1, y1, x2, y2) in bboxes
+            ]
+            (run / "annots" / "front" / f"{t:06d}.json").write_text(
+                json.dumps({"boxes": boxes})
+            )
+            np.save(run / "lidar" / f"{t:06d}.npy",
+                    rng.normal(size=(200, 4)).astype(np.float32))
+            # curved path: x advances, y sinusoidal; yaw = path tangent
+            x = 2.0 * t
+            y = amp * np.sin(wave * x)
+            dy_dx = amp * wave * np.cos(wave * x)
+            yaw = float(np.degrees(np.arctan2(dy_dx, 1.0)))
+            curv = -amp * wave * wave * np.sin(wave * x)
+            speed = 18.0 + 8.0 * np.sin(0.2 * t)
+            frames.append({
+                "frame": t,
+                "timestamp": 0.05 * t,
+                "image_filename": fname,
+                "location": {"x": float(x), "y": float(y), "z": 0.0},
+                "rotation": {"pitch": 0.0, "yaw": yaw, "roll": 0.0},
+                "velocity": {"x": float(speed / 3.6), "y": 0.0, "z": 0.0},
+                "speed_kmh": float(speed),
+                "control": {
+                    "throttle": float(np.clip(0.4 + 0.2 * np.cos(0.2 * t),
+                                              0, 1)),
+                    "steer": float(np.clip(2.0 * curv, -1, 1)),
+                    "brake": 0.0 if t % 11 else 0.3,
+                },
+                "traffic_density": {
+                    "nearby_vehicles_50m": int(rng.integers(0, 6)),
+                    "total_npc_vehicles": 10,
+                    "total_npc_walkers": 5,
+                },
+            })
+        (run / "config.json").write_text(json.dumps({
+            "run_id": r, "map": "Town01",
+            "weather": {"cloudiness": float(rng.uniform(0, 100)),
+                        "precipitation": 0.0, "wetness": 0.0,
+                        "fog_density": float(rng.uniform(0, 30)),
+                        "sun_altitude_angle": 45.0},
+        }))
+        (run / "vehicle_log.json").write_text(json.dumps(frames))
+    return out
 
 
 def main(argv=None) -> None:

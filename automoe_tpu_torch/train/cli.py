@@ -19,8 +19,8 @@ gating's `--cache-expert-features`, `--feature-cache-dir` and
 `--device-resident`, with the JAX CLI's guards. Where the JAX CLI gives an
 option no effect (--remat and --qat for policy and gating, --augment where
 the workload has none), the port says so. The mesh and multi-host flags,
-and a few policy and gating flags exit with "not ported yet"; none is
-silently ignored. `preset <name-or-path> [overrides...]` expands one of
+policy's --pp-microbatches and gating's --parallelism exit with "not
+ported yet"; none is silently ignored. `preset <name-or-path> [overrides...]` expands one of
 the JSON run configs in automoe_tpu_torch/configs/presets/ (the JAX
 package's, byte for byte; `preset --list` names them) into its
 subcommand's flags, the trailing overrides last. As in the JAX CLI,
@@ -45,7 +45,6 @@ _NOT_PORTED_FLAGS = (
     "--no-mesh", "--model-axis", "--spatial", "--tp-min-dim",
     "--multihost", "--coordinator", "--num-processes", "--process-id",
 )
-_NOT_PORTED_POLICY_FLAGS = ("--trunk-depth", "--trunk-width", "--pp-microbatches")
 _NOT_PORTED_GATING_FLAGS = ("--parallelism",)
 
 #: the reference trainers' schedule cadences (train/state.py::make_optimizer)
@@ -304,8 +303,14 @@ def cmd_policy(args):
         "remat": "EasyBackbone is 4 convs; nothing worth checkpointing",
         "qat": "int8 serving quantizes only the expert trunks; the policy head stays bf16",
         "augment": "expert pipelines only"})
+    if args.pp_microbatches > 0:
+        if args.trunk_depth <= 0:
+            raise SystemExit("--pp-microbatches needs --trunk-depth > 0 (only the deep trunk "
+                             "is stage-partitionable)")
+        raise SystemExit("--pp-microbatches is not ported yet")
     wl = W.policy_workload(horizon=args.horizon, context_dim=args.context_dim,
-                           dtype=_dtype(args))
+                           image_size=args.image_size, dtype=_dtype(args),
+                           trunk_depth=args.trunk_depth, trunk_width=args.trunk_width)
     if args.epochs == 0:
         # dry-run shape check (the reference's train_carla_policy.py:178-188)
         dev = resolve_device(args.device)
@@ -465,7 +470,14 @@ def main(argv=None):
     pp = sub.add_parser("policy")
     pp.add_argument("--horizon", type=int, default=8)
     pp.add_argument("--context-dim", type=int, default=0)
-    _reject(pp, _NOT_PORTED_POLICY_FLAGS)
+    pp.add_argument("--trunk-depth", type=int, default=0,
+                    help="N>0 swaps EasyBackbone for the depth-scalable residual GroupNorm "
+                         "trunk (models/deep_policy.py) with N blocks")
+    pp.add_argument("--trunk-width", type=int, default=128,
+                    help="channels of the deep trunk's blocks")
+    pp.add_argument("--pp-microbatches", type=int, default=0,
+                    help="pipelines the deep trunk over a mesh (not ported yet; needs "
+                         "--trunk-depth > 0)")
     _add_common(pp)
     # the reference policy CLI defaults to epochs=0 (a dry-run shape check)
     pp.set_defaults(fn=cmd_policy, epochs=0, batch_size=32, learning_rate=3e-4,

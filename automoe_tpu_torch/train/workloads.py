@@ -3,8 +3,8 @@ of automoe_tpu/train/workloads.py): the BDD / CARLA experts
 (`bdd_expert_workload`: detection, segmentation, drivable), the nuScenes
 expert (`nuscenes_workload`, camera + LiDAR), its CARLA image-only 2D
 fine-tune (`carla_nuscenes_2d_workload`), the standalone trajectory
-policy (`policy_workload`, 4-conv backbone only) and the gating network
-over the full AutoMoE (`gating_workload`).
+policy (`policy_workload`: the 4-conv backbone or the deep residual
+trunk) and the gating network over the full AutoMoE (`gating_workload`).
 
 Training options, as in the JAX package's factories:
   * dtype=torch.bfloat16 runs the forward under autocast (bf16 convs and
@@ -43,6 +43,7 @@ from automoe_tpu_torch.models.experts import (
     NuScenesExpert,
     NuScenesImage2DHead,
 )
+from automoe_tpu_torch.models.deep_policy import DeepTrajectoryPolicy
 from automoe_tpu_torch.models.policy import TrajectoryPolicy
 from automoe_tpu_torch.ops.boxes import box_convert
 from automoe_tpu_torch.ops.masked import masked_cross_entropy, masked_smooth_l1
@@ -280,14 +281,26 @@ def carla_nuscenes_2d_workload(*, num_queries: int = 196, num_classes: int = 10,
 # CARLA trajectory policy
 # ---------------------------------------------------------------------------
 
-def policy_workload(*, horizon: int = 8, context_dim: int = 0,
-                    trunk_depth: int = 0, dtype: torch.dtype = torch.float32) -> Workload:
+def policy_workload(*, horizon: int = 8, context_dim: int = 0, backbone_dim: int = 512,
+                    image_size: int = 256, dtype: torch.dtype = torch.float32,
+                    trunk_depth: int = 0, trunk_width: int = 128) -> Workload:
     """Standalone TrajectoryPolicy training (the reference's
     train_carla_policy.py): loss = ADE + 2 FDE + 0.2 speed L1 + 0.1
     smoothness. With context_dim > 0 the batch's `context` vector feeds
-    the heads. The deep residual trunk (trunk_depth > 0) is not ported."""
-    if trunk_depth > 0:
-        raise NotImplementedError("the deep policy trunk (--trunk-depth) is not ported yet")
+    the heads. trunk_depth > 0 swaps EasyBackbone for the deep residual
+    GroupNorm trunk (models/deep_policy.py::DeepTrajectoryPolicy) of
+    trunk_depth blocks of trunk_width channels. image_size is the JAX
+    signature's: the port's models take any input size, so nothing here
+    reads it."""
+    del image_size
+
+    def build_model():
+        if trunk_depth > 0:
+            return DeepTrajectoryPolicy(horizon=horizon, context_dim=context_dim,
+                                        backbone_dim=backbone_dim, depth=trunk_depth,
+                                        width=trunk_width)
+        return TrajectoryPolicy(horizon=horizon, context_dim=context_dim,
+                                backbone_dim=backbone_dim)
 
     def loss_fn(model, batch, train, key=None):
         ctx = batch.get("context") if context_dim > 0 else None
@@ -297,10 +310,7 @@ def policy_workload(*, horizon: int = 8, context_dim: int = 0,
         res = policy_losses(out, batch["waypoints"], batch["speed"])
         return res["loss"], {k: v for k, v in res.items() if k != "loss"}
 
-    return Workload(
-        name="carla_policy",
-        build_model=lambda: TrajectoryPolicy(horizon=horizon, context_dim=context_dim),
-        loss_fn=loss_fn)
+    return Workload(name="carla_policy", build_model=build_model, loss_fn=loss_fn)
 
 
 # ---------------------------------------------------------------------------

@@ -179,6 +179,27 @@ Phases, each of which must pass (none is caught):
      bound), each forward's time from CUDA events; (e) the host cost of a
      call through the custom ops against their CUDA bodies called
      directly (K3 bf16 and K4, B=8, host clock, median of 100 calls).
+ 19. the deep policy (models/deep_policy.py): (a) one AdamW step (depth 4,
+     width 32, 64x64, B=4, context 8) on the card against the CPU, TF32
+     off: loss within rtol 1e-4, parameters within rtol 1e-3 / atol 1e-5;
+     (b) `automoe-train-torch policy --trunk-depth 16 --trunk-width 128`
+     at 256x256, B=32, 2 epochs on a seeded CARLA sequence cache, then
+     `--resume full` for a third: finite losses, best.pt, the stacked
+     trunk in the checkpoint; (c) its train step's time (CUDA events) and
+     the trunk's achieved FLOP/s (trunk_flops_per_sample x 3 x B over the
+     step) against the dense TF32 peak (the default precision's convs);
+     then 2 epochs with --bf16 against the dense bf16 peak.
+ 20. the staged program (tools/campaign.py) at 256x256 and full width, its
+     counts cut (64 BDD frames a task, 3 CARLA runs of 32 frames, one
+     epoch a stage, 5 s of serving, 20 closed-loop steps; CAMPAIGN_ARGV),
+     with every kernel's count reset just before it: (a-b) all eight
+     stages, finite losses, K1 launched in the BDD and CARLA detection
+     steps, K2 alone in the nuscenes-2d steps, K3 in the export stage's
+     int8 frame, the closed loop finite, the int8-vs-bf16 controls and
+     each stage's seconds printed; (c) `automoe-launch-torch policy-gating`
+     with SKIP_GATING=1 on its CARLA caches; (d) `automoe-supervise-torch`
+     around a trainer that exits non-zero after one of its two epochs,
+     relaunched with `--resume full` to the end; (e) `checks cuda`.
 
 Prints the card's name and power limit, one JSON line of kernel results,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a CUDA
@@ -1610,6 +1631,236 @@ def phase_fused(smi: str):
     return out
 
 
+def phase_deep_policy_step():
+    """19a: one AdamW step of the deep policy (depth 4, width 32, 64x64,
+    B=4, context 8) on the card and on the CPU from one seed's weights,
+    TF32 off: loss within rtol 1e-4; parameters within rtol 1e-3 / atol
+    1e-5 (the CPU test's tolerance against JAX) wherever the CPU's
+    gradient is 0 or at least 1e-6. AdamW's first step is ~lr·g/(|g| + 1e-8),
+    so an element whose gradient is rounding noise (|g| ~ 1e-8) moves by
+    an undetermined fraction of lr on each device: those elements are
+    held within lr and counted."""
+    import torch
+
+    from automoe_tpu_torch.train.state import make_optimizer
+    from automoe_tpu_torch.train.step import make_train_step
+    from automoe_tpu_torch.train.workloads import policy_workload
+
+    rng = np.random.default_rng(SEED)
+    batch = {"image": rng.normal(size=(4, 64, 64, 3)).astype(np.float32),
+             "waypoints": (rng.normal(size=(4, 8, 2)) * 3).astype(np.float32),
+             "speed": rng.uniform(0, 30, (4, 8)).astype(np.float32),
+             "context": rng.uniform(0, 1, (4, 8)).astype(np.float32)}
+    lr = 1e-3
+    wl = policy_workload(horizon=8, context_dim=8, trunk_depth=4, trunk_width=32)
+    step = make_train_step(wl.loss_fn)
+    model = wl.init_model(SEED, torch.device("cpu"))
+    wl.loss_fn(model, {k: torch.from_numpy(v) for k, v in batch.items()}, True)[0].backward()
+    grad = {k: p.grad.abs() for k, p in model.named_parameters()}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = wl.init_model(SEED, torch.device(dev))
+        opt = make_optimizer(model.named_parameters(), learning_rate=lr, weight_decay=1e-4,
+                             total_steps=1, optimizer="adamw")
+        loss = float(step(model, opt, {k: torch.from_numpy(v).to(dev)
+                                       for k, v in batch.items()})["loss"])
+        runs[dev] = loss, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    worst, worst_noise, noise = 0.0, 0.0, 0
+    for k, v in runs["cpu"][1].items():
+        got, want = runs["cuda"][1][k].numpy(), v.numpy()
+        held = ((grad[k] == 0) | (grad[k] >= 1e-6)).numpy()
+        np.testing.assert_allclose(got[held], want[held], rtol=1e-3, atol=1e-5, err_msg=k)
+        diff = np.abs(got - want)
+        assert diff[~held].max(initial=0.0) <= lr, k
+        worst = max(worst, float(diff[held].max(initial=0.0)))
+        worst_noise = max(worst_noise, float(diff[~held].max(initial=0.0)))
+        noise += int((~held).sum())
+    out = {"loss_cuda": runs["cuda"][0], "loss_cpu": runs["cpu"][0],
+           "max_param_abs_diff": worst, "noise_gradient_elements": noise,
+           "max_param_abs_diff_noise_gradient": worst_noise}
+    print(f"phase 19a deep policy AdamW step, card vs CPU: {out}", flush=True)
+    return out
+
+
+def phase_deep_policy_cli(tmp: Path, smi: str):
+    """19b-c: `automoe-train-torch policy --trunk-depth 16 --trunk-width
+    128` at 256x256, B=32, 2 epochs, then --resume full for a third; the
+    train step's time and the trunk's achieved FLOP/s against the card's
+    dense TF32 peak (PyTorch's default precision runs the convs in TF32);
+    then 2 epochs with --bf16, against the dense bf16 peak."""
+    from automoe_tpu_torch.ckpt import load_checkpoint
+    from automoe_tpu_torch.models.deep_policy import trunk_flops_per_sample
+    from automoe_tpu_torch.tools.synth import synth_carla_sequence
+    from automoe_tpu_torch.train.cli import main as train_main
+
+    # 2 runs of 74 frames: 132 windows of horizon 8, 4 steps at batch 32
+    seq = synth_carla_sequence(tmp / "seq", n_per_split={"train": 148, "val": 26}, runs=2,
+                               size=256, seed=SEED)
+    argv = ["policy", "--data-root", str(seq), "--image-size", "256", "--batch-size", "32",
+            "--trunk-depth", "16", "--trunk-width", "128", "--ckpt-root", str(tmp / "ck"),
+            "--runs-root", str(tmp / "runs"), "--run-name", "deep"]
+    res = train_main(argv + ["--epochs", "2"])
+    resumed = train_main(argv + ["--epochs", "3", "--resume", "full"])
+    ck = tmp / "ck" / "carla_policy" / "deep"
+    assert (ck / "best.pt").is_file()
+    last = load_checkpoint(ck / "last.pt")
+    assert last["epoch"] == 2, last["epoch"]
+    assert tuple(last["model_state_dict"]["pipeline_blocks.conv1"].shape) == (16, 128, 128, 3,
+                                                                             3)
+    losses, vals = metrics_of(tmp / "runs" / "carla_policy_deep")
+    assert len(losses) == len(vals) == 3 and np.isfinite(losses + vals).all(), (losses, vals)
+    # the same trainer in bf16 (autocast: bf16 convs, GroupNorm in float32)
+    bf16 = train_main([a if a != "deep" else "deep-bf16" for a in argv]
+                      + ["--epochs", "2", "--bf16"])
+    losses16, vals16 = metrics_of(tmp / "runs" / "carla_policy_deep-bf16")
+    assert len(vals16) == 2 and np.isfinite(losses16 + vals16).all(), (losses16, vals16)
+    flops = trunk_flops_per_sample(16, 128, 256 // 4) * 3 * 32  # forward + backward
+    tflops = flops / (res["step_ms_p50"] * 1e-3) / 1e12
+    tflops16 = flops / (bf16["step_ms_p50"] * 1e-3) / 1e12
+    out = {"batch": 32, "train_loss_epoch": losses, "val_loss": vals,
+           "train/step_ms_p50": res["step_ms_p50"], "train/step_ms_mean": res["step_ms_mean"],
+           "timed_steps": res["timed_steps"],
+           "resumed_step_ms_p50": resumed["step_ms_p50"],
+           "trunk_flops_per_step": flops, "trunk_tflops_per_s": tflops,
+           "dense_tf32_peak_tflops_per_s": PEAK_TF32_FLOPS / 1e12,
+           "trunk_share_of_tf32_peak": tflops * 1e12 / PEAK_TF32_FLOPS,
+           "bf16": {"train/step_ms_p50": bf16["step_ms_p50"], "val_loss": vals16,
+                    "trunk_tflops_per_s": tflops16,
+                    "dense_bf16_peak_tflops_per_s": PEAK_BF16_FLOPS / 1e12,
+                    "trunk_share_of_bf16_peak": tflops16 * 1e12 / PEAK_BF16_FLOPS},
+           "card": smi}
+    print(f"phase 19b-c deep policy CLI ({smi}): {out}", flush=True)
+    return out
+
+
+#: the staged program's counts on the card: cut from the runner's defaults
+#: only as far as time asks; the image size and the model widths are its own
+CAMPAIGN_ARGV = ["--image-size", "256", "--bdd-train", "64", "--bdd-val", "16",
+                 "--carla-runs", "3", "--carla-frames", "32", "--epochs-experts", "1",
+                 "--epochs-finetune", "1", "--epochs-policy", "1", "--epochs-gating", "1",
+                 "--serve-seconds", "5", "--loop-steps", "20"]
+
+SUPERVISED_CHILD = r"""
+import sys
+from pathlib import Path
+sys.path.insert(0, sys.argv[1])
+from automoe_tpu_torch.train.cli import main
+state, argv = Path(sys.argv[2]), sys.argv[3:]
+if not state.exists():
+    state.write_text("crashed")
+    main(argv + ["--epochs", "1"])  # stops after one of the epochs, as a crash would
+    sys.exit(1)
+main(argv)
+"""
+
+
+def phase_campaign(tmp: Path, smi: str):
+    """20: (a) the staged program `python -m automoe_tpu_torch.tools.campaign`
+    at 256x256, full width, with the kernels' counts reset just before it;
+    (b) its eight stages, finite losses, K1, K2 and K3 launched, the closed
+    loop finite; (c) `automoe-launch-torch policy-gating` with SKIP_GATING
+    on its CARLA caches; (d) `automoe-supervise-torch` around a trainer
+    that exits non-zero once; (e) `checks cuda`."""
+    from automoe_tpu_torch.ops import auction_kernel as ak
+    from automoe_tpu_torch.ops import stem as stem_mod
+    from automoe_tpu_torch.tools.campaign import STAGES
+    from automoe_tpu_torch.tools.campaign import main as campaign_main
+    from automoe_tpu_torch.tools.checks import check_cuda
+
+    out = {}
+    camp = tmp / "campaign"
+    ak.reset_launch_counts()
+    stem_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = campaign_main(CAMPAIGN_ARGV + ["--out", str(camp)])
+    wall = time.perf_counter() - t0
+    launches = {"auction_solve": ak.LAUNCHES["auction_solve"], **stem_mod.LAUNCHES}
+    assert rec["order"] == list(STAGES), rec["order"]
+    st = rec["stages"]
+    losses = ([st["experts"][t]["best_val_loss"] for t in ("detection", "drivable",
+                                                           "segmentation")]
+              + [st["finetune"][t]["best_val_loss"] for t in ("detection", "segmentation",
+                                                               "drivable", "nuscenes_2d")]
+              + [st[s]["best_val_loss"] for s in ("policy", "gating")])
+    assert np.isfinite(losses).all(), losses
+    k1 = {f"{s} {t}": st[s][t]["kernel_launches"].get("auction_solve", 0)
+          for s in ("experts", "finetune") for t in ("detection",)}
+    k2 = st["finetune"]["nuscenes_2d"]["kernel_launches"].get("auction_solve", 0)
+    k3 = st["export"]["kernel_launches"].get("s2d_stem_pool_int8", 0)
+    assert all(v > 0 for v in k1.values()) and k2 > 0 and k3 > 0, (k1, k2, k3)
+    assert launches["auction_solve"] == sum(k1.values()) + k2, (launches, k1, k2)
+    assert launches["s2d_stem_pool_int8"] == k3, (launches, k3)
+    assert st["serve"]["closed_loop_finite"] is True and st["serve"]["closed_loop_steps"] == 20
+    sv = st["serve"]
+    assert sv["serve_errors"] == 0 and sv["batches"] >= 1 and sv["achieved_rps"] > 0, sv
+    controls = st["export"]["int8_vs_bf16_max_abs_controls"]
+    assert np.isfinite(list(controls.values())).all(), controls
+    out["a-b campaign"] = {
+        "argv": CAMPAIGN_ARGV, "wall_s": wall, "launches": launches,
+        "k1_launches": k1, "k2_alone_launches_nuscenes_2d": k2, "k3_launches_export": k3,
+        "stage_wall_s": {s: st[s]["wall_s"] for s in STAGES},
+        "int8_vs_bf16_max_abs_controls": controls, "serve": st["serve"],
+        "best_val_loss": dict(zip(["experts " + t for t in ("detection", "drivable",
+                                                             "segmentation")]
+                                  + ["finetune " + t for t in ("detection", "segmentation",
+                                                               "drivable", "nuscenes_2d")]
+                                  + ["policy", "gating"], losses)),
+        "eval": st["eval"], "card": smi}
+    print(f"phase 20a-b campaign ({smi}): {out['a-b campaign']}", flush=True)
+
+    out.update(phase_launch_supervise(tmp, camp / "data" / "carla_pre"))
+    rep = check_cuda()
+    assert rep["cuda_available"] and rep["n_devices"] >= 1 and rep["matmul_ok"], rep
+    out["e checks cuda"] = rep
+    print(f"phase 20e checks cuda: {rep}", flush=True)
+    return out
+
+
+def phase_launch_supervise(tmp: Path, pre: Path):
+    """20c-d on the staged program's 256x256 CARLA caches `pre`."""
+    import os
+
+    from automoe_tpu_torch.ckpt import load_checkpoint
+    from automoe_tpu_torch.tools.launch import main as launch_main
+    from automoe_tpu_torch.tools.supervisor import main as supervise_main
+
+    out = {}
+    os.environ["SKIP_GATING"] = "1"
+    try:
+        launch_main(["policy-gating", "--epochs", "1", "--batch-size", "16", "--image-size",
+                     "256", "--data-root", str(pre), "--ckpt-root", str(tmp / "lck"),
+                     "--runs-root", str(tmp / "lruns"), "--log-dir", str(tmp / "logs")])
+    finally:
+        del os.environ["SKIP_GATING"]
+    best = tmp / "lck" / "carla_policy" / "pipeline" / "best.pt"
+    assert best.is_file() and not (tmp / "lck" / "gating").exists()
+    losses, vals = metrics_of(tmp / "lruns" / "carla_policy_pipeline")
+    assert np.isfinite(losses + vals).all()
+    out["c launch policy-gating"] = {"train_loss_epoch": losses, "val_loss": vals}
+    print(f"phase 20c automoe-launch-torch: {out['c launch policy-gating']}", flush=True)
+
+    runs = tmp / "sruns"
+    train = ["policy", "--data-root", str(pre), "--image-size", "256", "--batch-size", "16",
+             "--trunk-depth", "2", "--trunk-width", "32", "--epochs", "2", "--run-name", "sup",
+             "--ckpt-root", str(tmp / "sck"), "--runs-root", str(runs)]
+    events = tmp / "events.jsonl"
+    rc = supervise_main(["--max-restarts", "2", "--backoff", "0.1", "--resume-args",
+                         "--resume full", "--heartbeat", str(runs / "carla_policy_sup" /
+                                                            "metrics.jsonl"),
+                         "--heartbeat-timeout", "300", "--event-log", str(events), "--",
+                         sys.executable, "-c", SUPERVISED_CHILD,
+                         str(Path(__file__).resolve().parent), str(tmp / "crashed"), *train])
+    kinds = [json.loads(line)["event"] for line in events.read_text().splitlines()]
+    last = load_checkpoint(tmp / "sck" / "carla_policy" / "sup" / "last.pt")
+    losses, vals = metrics_of(runs / "carla_policy_sup")
+    assert rc == 0 and kinds == ["launch", "failure", "launch", "success"], (rc, kinds)
+    assert last["epoch"] == 1 and len(vals) == 2 and np.isfinite(losses + vals).all()
+    out["d supervise"] = {"events": kinds, "last_epoch": last["epoch"], "val_loss": vals}
+    print(f"phase 20d automoe-supervise-torch: {out['d supervise']}", flush=True)
+    return out
+
+
 def rel_err(a, b) -> float:
     a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
     return float(np.abs(a - b).mean() / (np.abs(a).mean() + 1e-12))
@@ -1810,6 +2061,21 @@ def main() -> int:
     bundles["fused"] = phase_fused(smi)
     bundles["custom_op_host_us_b8"] = custom_op_host_us(stem, gen)
 
+    # 19. the deep policy: an AdamW step card vs CPU (TF32 off), then the
+    # trainer at full width (default precision)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    deep = {"a": phase_deep_policy_step()}
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+    print(smi, flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        deep["b-c"] = phase_deep_policy_cli(Path(tmp), smi)
+
+    # 20. the staged program end to end, with the launcher, the supervisor
+    # and the checks
+    with tempfile.TemporaryDirectory() as tmp:
+        campaign = phase_campaign(Path(tmp), smi)
+    camp = campaign["a-b campaign"]
+
     src = "automoe_tpu_torch/csrc/stem.cu"
     main_, big = k3[B_MAIN], k3[128]
     kernels = [{
@@ -1868,7 +2134,9 @@ def main() -> int:
                 loop["c --checkpoint <gating best> --quantize"]["launches"][
                     "s2d_stem_pool_int8"],
             "automoe-infer-torch --backend carla --quantize, 10 steps (phase 17d)":
-                loop["d --backend carla"]["launches"]["s2d_stem_pool_int8"]},
+                loop["d --backend carla"]["launches"]["s2d_stem_pool_int8"],
+            "the staged program's export stage, its int8 frame (phase 20)":
+                camp["k3_launches_export"]},
         "b2": {k: k3[2][k] for k in ("ms", "ms_blocks", "wrapper_ms", "plain_ms", "unfused_ms",
                                      "bound_ms", "bound_by", "max_abs_err", "diff_frac",
                                      "mixed_sign_inv_max_abs_err",
@@ -1949,6 +2217,10 @@ def main() -> int:
                 fast["b"]["packed-root"]["k1_launches"],
             "bdd --data-root, the same 2 epochs (phase 15b)":
                 fast["b"]["data-root"]["k1_launches"],
+            **{f"the staged program's {k} steps, K1 (phase 20)": v
+               for k, v in camp["k1_launches"].items()},
+            "the staged program's nuscenes-2d steps, K2 alone (phase 20)":
+                camp["k2_alone_launches_nuscenes_2d"],
             **{f"automoe-eval-torch {name}, max_iters=0 (phase 16)": v["launches"].get(
                 "auction_solve", 0) for name, v in evals.items()
                if name in ("bdd detection", "bdd detection --quantize", "nuscenes",
@@ -1972,6 +2244,8 @@ def main() -> int:
     print(json.dumps({"eval_cli": evals}), flush=True)
     print(json.dumps({"closed_loop": loop}), flush=True)
     print(json.dumps({"bundles": bundles}), flush=True)
+    print(json.dumps({"deep_policy": deep}), flush=True)
+    print(json.dumps({"campaign": campaign}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

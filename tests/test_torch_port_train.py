@@ -271,7 +271,7 @@ def test_train_cli_finetune_carla_on_cpu(tmp_path):
     ["bdd", "--task", "detection", "--multihost"],
     ["finetune-carla", "--task", "detection", "--model-axis", "2"],
     ["preset", "carla_finetune_v5e", "--model-axis", "2"],  # a preset's overrides too
-    ["policy", "--trunk-depth", "4"],
+    ["policy", "--trunk-depth", "4", "--pp-microbatches", "2"],
     ["gating", "--cache-expert-features", "--no-mesh"],
     ["gating", "--parallelism", "ep"],
 ], ids=["subcommand", "task", "flag", "flag-with-value", "preset", "policy-deep-trunk",
