@@ -31,6 +31,14 @@ never a torn one. With async_save the host snapshot is still taken in the
 caller (no torn state); one background thread writes, in submission order.
 `wait()` is the barrier: `Trainer.fit` calls it at the end and `restore`
 calls it first.
+
+Under a mesh of several ranks (`layout=`, a `StageLayout`), every rank
+calls save and restore. A save gathers the pipeline stages' blocks (the
+layout's names) over the model group back into their [L, ...] stacks, in the weights, the
+optimizer moments and the EMA, so the file has the single-process layout
+whatever wrote it; rank 0 alone writes, between two barriers (the JAX
+package's process-0 write). Every rank restores from the same file and
+cuts its own stage back out of it.
 """
 from __future__ import annotations
 
@@ -105,11 +113,42 @@ def load_variables(path, module: nn.Module, *, prefer_ema: bool = False) -> None
     load_state_into(module, state_dict_from_checkpoint(path, prefer_ema), str(path))
 
 
+class StageLayout:
+    """How a mesh splits named tensors: those in `names` hold this rank's
+    stage of an [L, ...] stack (parallel/pp.py), the rest are whole."""
+
+    def __init__(self, mesh, names=()):
+        self.mesh = mesh
+        self.names = set(names)
+
+    def gather(self, named: Mapping[str, Any]) -> Dict[str, Any]:
+        """The whole stacks back from the model group (a collective)."""
+        from automoe_tpu_torch.parallel.mesh import MODEL_AXIS
+
+        if not self.names or self.mesh.shape[MODEL_AXIS] == 1:
+            return dict(named)
+        return {k: (self.mesh.all_gather(v.contiguous(), "model").flatten(0, 1)
+                    if k in self.names else v) for k, v in named.items()}
+
+    def cut(self, named: Mapping[str, Any]) -> Dict[str, Any]:
+        """This rank's stage of each whole stack."""
+        from automoe_tpu_torch.parallel.pp import stage_param_sharding
+
+        if not self.names:
+            return dict(named)
+        mine = stage_param_sharding(self.mesh)(
+            {k: v for k, v in named.items() if k in self.names})
+        return {**named, **mine}
+
+
 class CheckpointManager:
     def __init__(self, root: str, component: str, run_name: str, *, save_freq: int = 0,
-                 async_save: bool = False, keep: int = 0):
+                 async_save: bool = False, keep: int = 0, layout: Optional[StageLayout] = None):
         """keep: retain only the newest `keep` periodic epoch_N files
-        (0 keeps all); best, last and step are never removed."""
+        (0 keeps all); best, last and step are never removed. layout: the
+        mesh of a run of several ranks and its stage-local names."""
+        self.layout = layout
+        self.writer = layout is None or layout.mesh.is_main
         self.dir = Path(root) / component / run_name  # made at the first write
         self.save_freq = save_freq
         self.keep = keep
@@ -121,8 +160,15 @@ class CheckpointManager:
     def path(self, which: str) -> Path:
         return self.dir / f"{which}{SUFFIX}"
 
+    def _barrier(self) -> None:
+        if self.layout is not None:
+            self.layout.mesh.barrier()
+
     def _run(self, fn: Callable[[], None]) -> None:
-        """Run a file operation now, or queue it behind the earlier ones."""
+        """Run a file operation now, or queue it behind the earlier ones
+        (on the writing rank only)."""
+        if not self.writer:
+            return
         if self._pool is None:
             fn()
         else:
@@ -134,22 +180,31 @@ class CheckpointManager:
         pending, self._pending = self._pending, []
         for f in pending:
             f.result()
+        self._barrier()
 
     # -- save ---------------------------------------------------------------
 
+    def _whole(self, named: Mapping[str, Any]) -> Dict[str, Any]:
+        return dict(named) if self.layout is None else self.layout.gather(named)
+
     def _payload(self, model: nn.Module, optimizer, epoch: int) -> Dict[str, Any]:
+        """The file's dict (every rank: the stage gather is a collective)."""
+        self._barrier()
         opt = optimizer.state_dict()
+        mus = self._whole({n: mn[0] for n, mn in opt["state"].items()})
+        nus = self._whole({n: mn[1] for n, mn in opt["state"].items()})
+        state = {n: (mus[n], nus[n]) for n in opt["state"]}
         payload = {
-            "model_state_dict": _host_copy(model.state_dict()),
+            "model_state_dict": _host_copy(self._whole(model.state_dict())),
             "optimizer": {"count": opt["count"], "state": {
                 n: tuple(t.detach().to("cpu", copy=True) for t in mn)
-                for n, mn in opt["state"].items()}},
+                for n, mn in state.items()}},
             "step": int(opt["count"]),
             "epoch": int(epoch),
             "best_val_loss": float(self.best_val),
         }
         if optimizer.ema is not None:
-            payload["ema_state_dict"] = _host_copy(optimizer.ema.state_dict())
+            payload["ema_state_dict"] = _host_copy(self._whole(optimizer.ema.state_dict()))
         return payload
 
     def _write(self, which: str, payload: Dict[str, Any], config: Optional[Dict]) -> None:
@@ -183,6 +238,8 @@ class CheckpointManager:
         # (restoring it would retrain this epoch's tail and roll back
         # best_val); restore(which="step") falls back to `last`
         self._run(lambda: self.path("step").unlink(missing_ok=True))
+        if self._pool is None:
+            self._barrier()
         return is_best
 
     def _collect_epochs(self) -> None:
@@ -199,6 +256,8 @@ class CheckpointManager:
         payload = self._payload(model, optimizer, epoch)
         payload["batch_index"] = int(batch_index)
         self._write("step", payload, config)
+        if self._pool is None:
+            self._barrier()
 
     # -- restore ------------------------------------------------------------
 
@@ -226,12 +285,17 @@ class CheckpointManager:
             epoch, _ = self.restore(model, optimizer, which="last", mode=mode)
             return epoch + 1, 0
         payload = load_checkpoint(path)
-        load_state_into(model, payload["model_state_dict"], str(path))
+        cut = (lambda d: dict(d)) if self.layout is None else self.layout.cut
+        load_state_into(model, cut(payload["model_state_dict"]), str(path))
         if mode == "full":
-            optimizer.load_state_dict(payload["optimizer"])
+            opt = payload["optimizer"]
+            mus = cut({n: mn[0] for n, mn in opt["state"].items()})
+            nus = cut({n: mn[1] for n, mn in opt["state"].items()})
+            optimizer.load_state_dict({"count": opt["count"],
+                                       "state": {n: (mus[n], nus[n]) for n in opt["state"]}})
         if optimizer.ema is not None:
             if "ema_state_dict" in payload:
-                optimizer.ema.load_state_dict(payload["ema_state_dict"])
+                optimizer.ema.load_state_dict(cut(payload["ema_state_dict"]))
             else:
                 optimizer.ema.reset()
         self.best_val = float(payload["best_val_loss"])

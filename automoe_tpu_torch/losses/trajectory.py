@@ -12,12 +12,16 @@ configurable weights plus
 `loss_config` keys and defaults are the JAX package's: use_load_balancing,
 use_entropy_loss (True), ade_weight 1.0, fde_weight 2.0, speed_weight 0.2,
 smoothness_weight 0.1, load_balancing_weight 0.01, entropy_weight 0.001.
+Under a data-parallel mesh the load-balancing MSE is taken on the global
+batch's mean usage (`parallel.mesh.data_mean`), as JAX's mesh takes it.
 """
 from __future__ import annotations
 
 from typing import Dict, Mapping, Optional
 
 import torch
+
+from automoe_tpu_torch.parallel.mesh import data_mean
 
 
 def _l1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -64,7 +68,8 @@ def gating_losses(pred: Mapping[str, torch.Tensor], target_wp: torch.Tensor,
     w = pred["expert_weights"].float()  # [B, E]
     zero = w.new_zeros(())
     if cfg.get("use_load_balancing", True):
-        mean_usage = w.mean(dim=0)
+        # the global batch's usage before the square (a data mesh's mean)
+        mean_usage = data_mean(w.mean(dim=0))
         load_balancing = ((mean_usage - 1.0 / mean_usage.shape[0]) ** 2).mean()
     else:
         load_balancing = zero

@@ -92,6 +92,17 @@ def full_context_data(batch: Dict[str, Any], B: int, dtype, device) -> Dict[str,
     return data
 
 
+def seed_part(rng_key: Optional[Sequence[int]], part: int) -> None:
+    """Reseed torch's generators for one part of the forward from
+    (*rng_key, part), so each part's dropout is drawn from the step's key
+    whatever ran before it: context 1, expert i 100 + i, its extractor
+    200 + i, gating and policy 2. Nothing without a key."""
+    if rng_key is not None:
+        from automoe_tpu_torch.train.step import seed_from
+
+        torch.manual_seed(seed_from((*rng_key, part)))
+
+
 def lidar_or_zeros(batch: Dict[str, torch.Tensor], B: int, dtype, device) -> torch.Tensor:
     """The batch's [B,P,3] points, or 1000 zero points per frame when it
     has none (camera-only serving), as the JAX model feeds a LiDAR
@@ -139,19 +150,33 @@ class AutoMoE(nn.Module):
                                    torch.as_tensor(v, device=low.device).to(low.dtype))
         return self._uv_cache[key]
 
-    def extractor_features(self, expert_outputs: List[Any], image_hw) -> List[torch.Tensor]:
-        """Expert outputs → gating inputs. Under fast_gating_pool the
+    def extractor_feature(self, i: int, out: Any, image_hw) -> torch.Tensor:
+        """Expert i's output → its gating input. Under fast_gating_pool the
         low-res dims come from the expert's ACTUAL output: the trunk's
         stride-32 reduction rounds up, so image_dim // 32 is wrong for
         non-multiple-of-32 inputs."""
+        uv = None
+        if self.fast_gating_pool and self.config.experts[i].type in ("segmentation",
+                                                                     "drivable"):
+            uv = self._pool_uv(out, tuple(image_hw))
+        return self.expert_extractors.extractors[i](out, pool_uv=uv)
+
+    def extractor_features(self, expert_outputs: List[Any], image_hw,
+                           rng_key: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
+        """Expert outputs → gating inputs (`extractor_feature` of each)."""
         feats = []
-        for ecfg, out, ext in zip(self.config.experts, expert_outputs,
-                                  self.expert_extractors.extractors):
-            uv = None
-            if self.fast_gating_pool and ecfg.type in ("segmentation", "drivable"):
-                uv = self._pool_uv(out, tuple(image_hw))
-            feats.append(ext(out, pool_uv=uv))
+        for i, out in enumerate(expert_outputs):
+            seed_part(rng_key, 200 + i)
+            feats.append(self.extractor_feature(i, out, image_hw))
         return feats
+
+    def expert_output(self, i: int, image: torch.Tensor, batch: Dict[str, Any]) -> Any:
+        """Expert i on the NCHW image (its LiDAR points from the batch)."""
+        ecfg, expert = self.config.experts[i], self.experts[i]
+        if ecfg.type == "nuscenes" and ecfg.use_lidar:
+            return expert(image, lidar_or_zeros(batch, image.shape[0], image.dtype,
+                                                image.device))
+        return expert(image)
 
     def context_features(self, batch: Dict[str, Any], B: int, dtype, device) -> torch.Tensor:
         """The batch's context through the context extractor ('simple':
@@ -182,7 +207,8 @@ class AutoMoE(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor], *, experts_eval: bool = False,
                 cached_pooled: Optional[Sequence[torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+                generator: Optional[torch.Generator] = None,
+                rng_key: Optional[Sequence[int]] = None) -> Dict[str, Any]:
         """experts_eval: the (frozen) experts run in eval mode — BatchNorm
         on running statistics, which stay put, and the nuScenes expert's
         dropout off — while the rest of the model keeps its own mode (the
@@ -192,25 +218,30 @@ class AutoMoE(nn.Module):
         trunks are skipped and the extractor heads consume these, so
         `expert_outputs` is empty. Equivalent to experts_eval.
         generator: the source of the routing noise, which top-k routing
-        with noise_scale > 0 needs (`GatingNetwork._route`)."""
+        with noise_scale > 0 needs (`GatingNetwork._route`). rng_key: each
+        part's dropout drawn from its own seed (`seed_part`)."""
         image = batch["image"]
         if image.ndim != 4 or image.shape[-1] != 3:
             raise ValueError(f"expected NHWC image [B,H,W,3], got {tuple(image.shape)}")
         image = image.permute(0, 3, 1, 2)  # NHWC → NCHW, once
         B = image.shape[0]
+        seed_part(rng_key, 1)
         context_features = self.context_features(batch, B, image.dtype, image.device)
         if cached_pooled is not None:
             expert_outputs = []
-            features = [ext(None, pooled=p) for ext, p in
-                        zip(self.expert_extractors.extractors, cached_pooled)]
+            features = []
+            for i, (ext, p) in enumerate(zip(self.expert_extractors.extractors,
+                                             cached_pooled)):
+                seed_part(rng_key, 200 + i)
+                features.append(ext(None, pooled=p))
         else:
+            expert_outputs = []
             with eval_mode(self.experts) if experts_eval else contextlib.nullcontext():
-                expert_outputs = [
-                    expert(image, lidar_or_zeros(batch, B, image.dtype, image.device))
-                    if ecfg.type == "nuscenes" and ecfg.use_lidar else expert(image)
-                    for ecfg, expert in zip(self.config.experts, self.experts)
-                ]
-            features = self.extractor_features(expert_outputs, image.shape[2:])
+                for i in range(len(self.experts)):
+                    seed_part(rng_key, 100 + i)
+                    expert_outputs.append(self.expert_output(i, image, batch))
+            features = self.extractor_features(expert_outputs, image.shape[2:], rng_key)
+        seed_part(rng_key, 2)
         out = self.head_outputs(image, features, context_features, generator=generator)
         out["expert_outputs"] = expert_outputs
         return out

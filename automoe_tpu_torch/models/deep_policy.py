@@ -20,16 +20,18 @@ runs in float32, where the JAX package casts its parameters to bf16.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from automoe_tpu_torch.models.policy import _Head
-
-#: the submodule (and state-dict prefix) of the [L]-stacked trunk
-PIPELINE_BLOCKS = "pipeline_blocks"
+from automoe_tpu_torch.parallel.pp import (  # noqa: F401  (PIPELINE_BLOCKS: the trunk's name)
+    PIPELINE_BLOCKS,
+    grouped_pipeline_apply,
+    sequential_apply,
+)
 
 #: std of a unit normal truncated to ±2 (flax's truncated_normal variance_scaling)
 _TRUNC_STD = 0.87962566103423978
@@ -51,15 +53,6 @@ def residual_block(params: Dict[str, torch.Tensor], h: torch.Tensor, *,
     return h + y
 
 
-def sequential_apply(block_fn: Callable, stacked: Dict[str, torch.Tensor],
-                     x: torch.Tensor) -> torch.Tensor:
-    """The L blocks in a row: block l reads slice l of every stacked leaf."""
-    depth = next(iter(stacked.values())).shape[0]
-    for i in range(depth):
-        x = block_fn({k: v[i] for k, v in stacked.items()}, x)
-    return x
-
-
 class StackedTrunk(nn.Module):
     """The [L]-stacked block parameters and their sequential application."""
 
@@ -68,6 +61,7 @@ class StackedTrunk(nn.Module):
         fk = dict(device=device, dtype=dtype)
         L, C = depth, width
         self.groups = groups
+        self.pipeline = None  # (mesh, microbatches) once pp_shard_state cut a stage
         self.conv1 = nn.Parameter(torch.empty(L, C, C, 3, 3, **fk))
         self.conv2 = nn.Parameter(torch.empty(L, C, C, 3, 3, **fk))
         self.gn1_scale = nn.Parameter(torch.ones(L, C, **fk))
@@ -99,6 +93,10 @@ class StackedTrunk(nn.Module):
         def block(p, x):
             return residual_block(p, x, groups=self.groups)
 
+        if self.pipeline is not None:
+            mesh, microbatches = self.pipeline
+            return grouped_pipeline_apply(block, self.stacked(), h, mesh,
+                                          microbatches=microbatches)
         return sequential_apply(block, self.stacked(), h)
 
 

@@ -3,11 +3,16 @@
 Written as the JAX package writes them: a `where`-masked sum over a mean
 with max(count, 1), so a batch with nothing matched gives 0, not the NaN
 that `F.cross_entropy(ignore_index=...)` or a loss over an empty
-boolean-indexed tensor would give.
+boolean-indexed tensor would give. Under a data-parallel mesh the count is
+the data group's (`parallel.mesh.loss_denominator`): each rank divides its
+local sum by the mean count, so the ranks' mean is the global batch's mean
+even when they match different numbers of queries.
 """
 from __future__ import annotations
 
 import torch
+
+from automoe_tpu_torch.parallel.mesh import loss_denominator
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -19,7 +24,7 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
     logp = torch.log_softmax(logits.float(), dim=dim)
     nll = -torch.gather(logp, dim, safe.unsqueeze(dim)).squeeze(dim)
-    denom = torch.clamp(mask.sum(), min=1)
+    denom = loss_denominator(mask.sum())
     return torch.where(mask, nll, torch.zeros_like(nll)).sum() / denom
 
 
@@ -38,4 +43,4 @@ def masked_smooth_l1(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tenso
     total = (per_elem * m).sum()
     if reduction == "sum":
         return total
-    return total / torch.clamp(m.sum(), min=1.0)
+    return total / loss_denominator(m.sum())

@@ -1,0 +1,20 @@
+"""Process groups and the whole-block parallel modes of the port (port of
+automoe_tpu/parallel/): the mesh of processes (mesh.py), BatchNorm over
+the data group (batchnorm.py), pipeline parallelism (pp.py) and expert
+parallelism (ep.py). Tensor and spatial partitioning (JAX tp.py, sp.py)
+are not ported yet."""
+from automoe_tpu_torch.parallel.mesh import (  # noqa: F401
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    MeshSpec,
+    active_mesh,
+    choose_backend,
+    init_world,
+    make_mesh,
+    pad_to_multiple,
+)
+from automoe_tpu_torch.parallel.pp import (  # noqa: F401
+    pipeline_apply,
+    stage_param_sharding,
+)

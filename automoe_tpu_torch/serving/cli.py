@@ -95,7 +95,10 @@ def main(argv: Optional[Sequence[str]] = None, block: bool = True):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' to run without a GPU); "
                         "ignored with --bundle")
+    p.add_argument("--data-parallel", action="store_true", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
+    if args.data_parallel:  # the JAX server's mesh-sharded engine
+        p.error("--data-parallel is not ported yet")
 
     from automoe_tpu_torch.serving.server import BatchingServer, serve_tcp
 

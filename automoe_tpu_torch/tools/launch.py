@@ -11,8 +11,9 @@ SKIP_DRIVABLE, SKIP_NUSCENES, SKIP_POLICY, SKIP_GATING.
 
 `--device` (default cuda) is forwarded to every stage; without a GPU and
 without `--device cpu` the launcher raises before the first stage.
-`--no-mesh` is refused with the trainer's "not ported yet" (the mesh
-flags come with the port's parallel/ package). The summary (each stage's
+`--no-mesh` and the mesh flags (`--model-axis`, `--multihost`,
+`--coordinator`, `--num-processes`, `--process-id`) are forwarded to
+every stage, which applies the trainer's meaning and refusals. The summary (each stage's
 status and seconds) is printed and written to
 <log-dir>/<pipeline>_<run-name>.json; JAX's launcher only makes the
 directory.
@@ -44,6 +45,15 @@ def _stage_args(stage: List[str], args) -> List[str]:
     out += ["--run-name", args.run_name, "--ckpt-root", args.ckpt_root,
             "--runs-root", args.runs_root]
     out += ["--device", args.device]
+    if args.no_mesh:
+        out += ["--no-mesh"]
+    if args.model_axis != 1:
+        out += ["--model-axis", str(args.model_axis)]
+    if args.multihost:
+        out += ["--multihost"]
+    for flag in ("coordinator", "num_processes", "process_id"):
+        if getattr(args, flag) is not None:
+            out += ["--" + flag.replace("_", "-"), str(getattr(args, flag))]
     if args.image_size:
         out += ["--image-size", str(args.image_size)]
     if args.num_workers is not None:
@@ -94,7 +104,6 @@ def _stage_name(stage: List[str]) -> str:
 
 
 def main(argv=None):
-    from automoe_tpu_torch.train.cli import _reject
     from automoe_tpu_torch.train.cli import main as train_main
     from automoe_tpu_torch.utils import resolve_device
 
@@ -110,7 +119,15 @@ def main(argv=None):
     p.add_argument("--runs-root", default="runs")
     p.add_argument("--log-dir", default="logs",
                    help="where the summary goes: <log-dir>/<pipeline>_<run-name>.json")
-    _reject(p, ("--no-mesh",))
+    p.add_argument("--no-mesh", action="store_true",
+                   help="forwarded: each stage runs one process with no group")
+    p.add_argument("--model-axis", type=int, default=1, help="forwarded to every stage")
+    p.add_argument("--multihost", action="store_true",
+                   help="forwarded, with --coordinator, --num-processes and --process-id: "
+                        "this launcher is one rank of each stage's world")
+    p.add_argument("--coordinator", default=None)
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device of every stage (default cuda; 'cpu' runs without a "
                         "GPU)")

@@ -18,8 +18,17 @@ so are the step options (`--bf16`, `--ema-decay`, `--grad-accum`,
 gating's `--cache-expert-features`, `--feature-cache-dir` and
 `--device-resident`, with the JAX CLI's guards. Where the JAX CLI gives an
 option no effect (--remat and --qat for policy and gating, --augment where
-the workload has none), the port says so. The mesh and multi-host flags,
-policy's --pp-microbatches and gating's --parallelism exit with "not
+the workload has none), the port says so. The mesh flags are the JAX
+CLI's too: `--multihost --coordinator host:port --num-processes N
+--process-id i` start this process as rank i of a world of N processes
+(one process per card: parallel/mesh.py; gloo on the CPU and when ranks
+share a card, NCCL when each has its own), `--model-axis M` splits the
+world data x M, `--no-mesh` runs one process with no group; data-parallel
+ranks read their own sampler shard of --batch-size rows each; policy's
+`--pp-microbatches` pipelines the deep trunk over the model axis and
+gating's `--parallelism ep` runs one expert a rank, with the JAX CLI's
+refusals. `--spatial`, `--tp-min-dim` and, on more than one rank,
+gating's `--cache-expert-features` and `--device-resident` exit with "not
 ported yet"; none is silently ignored. `preset <name-or-path> [overrides...]` expands one of
 the JSON run configs in automoe_tpu_torch/configs/presets/ (the JAX
 package's, byte for byte; `preset --list` names them) into its
@@ -41,11 +50,7 @@ from automoe_tpu_torch.train import workloads as W
 from automoe_tpu_torch.train.loop import TrainConfig, Trainer
 
 #: the JAX CLI's flags this port does not have yet
-_NOT_PORTED_FLAGS = (
-    "--no-mesh", "--model-axis", "--spatial", "--tp-min-dim",
-    "--multihost", "--coordinator", "--num-processes", "--process-id",
-)
-_NOT_PORTED_GATING_FLAGS = ("--parallelism",)
+_NOT_PORTED_FLAGS = ("--spatial", "--tp-min-dim")
 
 #: the reference trainers' schedule cadences (train/state.py::make_optimizer)
 _DEFAULT_SCHEDULE = {"policy": "constant", "gating": "cosine_per_epoch"}
@@ -158,6 +163,17 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "automoe-serve-torch --ema. Typical: 0.999")
     p.add_argument("--device", default=None,
                    help="cuda (default; raises without a GPU) or cpu")
+    p.add_argument("--no-mesh", action="store_true",
+                   help="one process, no process group")
+    p.add_argument("--model-axis", type=int, default=1,
+                   help="mesh 'model'-axis size (the world's processes split data x model)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a world of processes (with --coordinator, --num-processes, "
+                        "--process-id) before anything else")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of rank 0's rendezvous, with --multihost")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     _reject(p, _NOT_PORTED_FLAGS)
 
 
@@ -171,7 +187,8 @@ def _train_cfg(args, pipeline: str = "") -> TrainConfig:
         resume_from=args.resume_from, save_every_steps=args.save_every_steps,
         max_inflight=args.max_inflight, steps_per_call=args.steps_per_call,
         profile_dir=args.profile_dir, grad_accum=args.grad_accum,
-        ema_decay=args.ema_decay, debug_nans=args.debug_nans, device=args.device)
+        ema_decay=args.ema_decay, debug_nans=args.debug_nans, device=args.device,
+        pp_microbatches=getattr(args, "pp_microbatches", 0))
 
 
 def _dtype(args):
@@ -192,9 +209,51 @@ def _args_dump(args) -> dict:
             if isinstance(v, (str, int, float, bool, type(None), list))}
 
 
-def _loaders(factory, args, **kw):
-    # --seed sets the shuffle too (the JAX CLI leaves its loaders at seed 0)
+def _world_size(args) -> int:
+    return args.num_processes if args.multihost else 1
+
+
+def _world_guards(args) -> None:
+    """Refusals that need only the flags: made before the group is joined
+    (a refused rank must not leave the others waiting at the rendezvous)."""
+    if args.multihost and None in (args.coordinator, args.num_processes, args.process_id):
+        raise SystemExit("--multihost needs --coordinator host:port, --num-processes and "
+                         "--process-id (the port reads no cluster from its environment)")
+    if args.no_mesh and _world_size(args) > 1:
+        raise SystemExit("--no-mesh runs one process with no process group; drop "
+                         "--multihost")
+    if _world_size(args) > 1 and args.cmd == "gating":
+        for flag in ("cache_expert_features", "device_resident"):
+            if getattr(args, flag):
+                raise SystemExit(f"--{flag.replace('_', '-')} on more than one rank is not "
+                                 "ported yet")
+
+
+def _mesh(args, *, data: int = -1, model: int = 0):
+    """The run's mesh over the world (None with --no-mesh), checked with
+    the JAX package's words."""
+    if args.no_mesh:
+        return None
+    from automoe_tpu_torch.parallel import MeshSpec, make_mesh
+
+    try:  # the Trainer resolves the device (and raises without a GPU)
+        mesh = make_mesh(MeshSpec(data=data, model=model or args.model_axis),
+                         device=args.device or "cuda")
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    if mesh.size > 1 and mesh.is_main:
+        print(f"[mesh] {mesh.shape['data']}x{mesh.shape['model']} over {mesh.size} "
+              f"processes: backend {mesh.backend}, staging {mesh.staging_label}, "
+              f"device {mesh.device}", flush=True)
+    return mesh
+
+
+def _loaders(factory, args, mesh=None, **kw):
+    # --seed sets the shuffle too (the JAX CLI leaves its loaders at seed 0);
+    # each data rank reads its own shard of --batch-size rows
     common = dict(batch_size=args.batch_size, num_workers=args.num_workers, seed=args.seed)
+    if mesh is not None:
+        common.update(num_shards=mesh.shape["data"], shard_index=mesh.data_index)
     if args.data_root:
         common["root_dir"] = args.data_root
     if getattr(args, "packed_root", None):
@@ -204,9 +263,9 @@ def _loaders(factory, args, **kw):
     return train, val
 
 
-def _sized_loaders(factory, args, **kw):
+def _sized_loaders(factory, args, mesh=None, **kw):
     """_loaders, after checking --image-size against the cache's images."""
-    train, val = _loaders(factory, args, **kw)
+    train, val = _loaders(factory, args, mesh, **kw)
     hw = train.dataset[0]["image"].shape[:2]
     if hw != (args.image_size, args.image_size):
         raise SystemExit(f"--image-size {args.image_size}: the cache under "
@@ -220,17 +279,23 @@ def _graft_init_from(trainer: Trainer, args) -> Trainer:
     checkpoint of this run, grafting the source again would roll trained
     weights back on every relaunch."""
     if args.init_from and not trainer.resumed:
-        from automoe_tpu_torch.ckpt import load_variables
-
-        load_variables(args.init_from, trainer.model)
+        trainer.load_variables(args.init_from)
         trainer.reset_ema()  # the average starts at the seeded weights
         print(f"[cli] warm-started weights and BatchNorm statistics from {args.init_from}",
               flush=True)
     return trainer
 
 
-def _fit(wl, train, val, args, pipeline: str = ""):
-    trainer = Trainer(wl, train, val, _train_cfg(args, pipeline))
+def _trainer(wl, train, val, cfg: TrainConfig, mesh):
+    """The Trainer, under the mesh when it has more than one rank (a
+    group of one runs the single-process path, as --no-mesh does)."""
+    if mesh is not None and mesh.size > 1:
+        return Trainer(wl, train, val, cfg, mesh=mesh)
+    return Trainer(wl, train, val, cfg)
+
+
+def _fit(wl, train, val, args, pipeline: str = "", mesh=None):
+    trainer = _trainer(wl, train, val, _train_cfg(args, pipeline), mesh)
     return _graft_init_from(trainer, args).fit(_args_dump(args))
 
 
@@ -241,7 +306,8 @@ def _run_expert(args, factories):
                                matcher=args.matcher, dtype=_dtype(args), remat=args.remat,
                                qat=args.qat, augment=args.augment)
     kw = {"box_cap": args.box_cap} if args.task == "detection" else {}
-    return _fit(wl, *_sized_loaders(factories[args.task], args, **kw), args)
+    mesh = _mesh(args)
+    return _fit(wl, *_sized_loaders(factories[args.task], args, mesh, **kw), args, mesh=mesh)
 
 
 def cmd_bdd(args):
@@ -278,8 +344,9 @@ def cmd_nuscenes(args):
                              fusion=args.fusion, bbox_loss_weight=args.bbox_loss_weight,
                              matcher=args.matcher, dtype=_dtype(args), remat=args.remat,
                              qat=args.qat)
-    return _fit(wl, *_sized_loaders(get_nuscenes_loader, args, lidar_cap=args.lidar_cap,
-                                    box_cap=args.box_cap), args)
+    mesh = _mesh(args)
+    return _fit(wl, *_sized_loaders(get_nuscenes_loader, args, mesh, lidar_cap=args.lidar_cap,
+                                    box_cap=args.box_cap), args, mesh=mesh)
 
 
 def cmd_nuscenes_2d(args):
@@ -289,8 +356,9 @@ def cmd_nuscenes_2d(args):
                                       bbox_loss_weight=args.bbox_loss_weight,
                                       dtype=_dtype(args), remat=args.remat, qat=args.qat,
                                       augment=args.augment)
-    return _fit(wl, *_sized_loaders(get_carla_detection_loader, args,
-                                    box_cap=args.box_cap), args)
+    mesh = _mesh(args)
+    return _fit(wl, *_sized_loaders(get_carla_detection_loader, args, mesh,
+                                    box_cap=args.box_cap), args, mesh=mesh)
 
 
 def cmd_policy(args):
@@ -303,14 +371,21 @@ def cmd_policy(args):
         "remat": "EasyBackbone is 4 convs; nothing worth checkpointing",
         "qat": "int8 serving quantizes only the expert trunks; the policy head stays bf16",
         "augment": "expert pipelines only"})
+    mesh = _mesh(args) if args.epochs else None
     if args.pp_microbatches > 0:
         if args.trunk_depth <= 0:
             raise SystemExit("--pp-microbatches needs --trunk-depth > 0 (only the deep trunk "
                              "is stage-partitionable)")
-        raise SystemExit("--pp-microbatches is not ported yet")
+        if args.epochs and (mesh is None or mesh.shape["model"] < 2):
+            raise SystemExit("--pp-microbatches needs --model-axis > 1")
+        if args.epochs and args.trunk_depth % mesh.shape["model"]:
+            raise SystemExit(f"--trunk-depth {args.trunk_depth} must divide by "
+                             f"--model-axis {mesh.shape['model']}")
     wl = W.policy_workload(horizon=args.horizon, context_dim=args.context_dim,
                            image_size=args.image_size, dtype=_dtype(args),
-                           trunk_depth=args.trunk_depth, trunk_width=args.trunk_width)
+                           trunk_depth=args.trunk_depth, trunk_width=args.trunk_width,
+                           pipeline_mesh=mesh if args.epochs else None,
+                           pipeline_microbatches=args.pp_microbatches if args.epochs else 0)
     if args.epochs == 0:
         # dry-run shape check (the reference's train_carla_policy.py:178-188)
         dev = resolve_device(args.device)
@@ -321,15 +396,20 @@ def cmd_policy(args):
             out = model(image, ctx)
         print({k: tuple(v.shape) for k, v in out.items()}, flush=True)
         return {"dry_run": True}
-    train, val = _sized_loaders(get_carla_sequence_loader, args, horizon=args.horizon)
-    return _fit(wl, train, val, args, "policy")
+    train, val = _sized_loaders(get_carla_sequence_loader, args, mesh, horizon=args.horizon)
+    return _fit(wl, train, val, args, "policy", mesh=mesh)
 
 
 def _gating_guards(args) -> None:
-    """The JAX CLI's refusals for the feature cache and the resident loader."""
-    if args.cache_expert_features and args.unfreeze_experts:
-        raise SystemExit("--cache-expert-features requires frozen experts (the cache is one "
-                         "eval pass over fixed weights); drop --unfreeze-experts")
+    """The JAX CLI's refusals for the feature cache, the resident loader
+    and expert parallelism's mesh."""
+    if args.cache_expert_features:
+        if args.unfreeze_experts:
+            raise SystemExit("--cache-expert-features requires frozen experts (the cache is "
+                             "one eval pass over fixed weights); drop --unfreeze-experts")
+        if args.parallelism == "ep":
+            raise SystemExit("--cache-expert-features removes the expert compute that "
+                             "--parallelism ep distributes; pick one")
     if args.device_resident:
         if not args.cache_expert_features:
             raise SystemExit("--device-resident requires --cache-expert-features (the "
@@ -340,6 +420,8 @@ def _gating_guards(args) -> None:
             raise SystemExit("--device-resident doesn't compose with --grad-accum (the "
                              "resident loader pre-groups for steps_per_call; raise "
                              "--batch-size instead)")
+    if args.parallelism == "ep" and args.no_mesh:
+        raise SystemExit("--parallelism ep requires a device mesh")
 
 
 def cmd_gating(args):
@@ -354,12 +436,26 @@ def cmd_gating(args):
                "trainers whose checkpoints feed this stage",
         "augment": "expert pipelines only"})
     _gating_guards(args)
-    wl = W.gating_workload(cfg, loss_config=json.loads(args.loss_config or "{}"),
-                           freeze_experts=not args.unfreeze_experts, dtype=_dtype(args),
-                           cache_features=args.cache_expert_features)
-    train, val = _sized_loaders(get_carla_sequence_loader, args,
+    loss_cfg = json.loads(args.loss_config or "{}")
+    if args.parallelism == "ep":
+        from automoe_tpu_torch.parallel.ep import ep_gating_workload
+
+        n, E = _world_size(args), len(cfg.experts)
+        if n % E:
+            raise SystemExit(f"--parallelism ep needs device count divisible by {E} experts "
+                             f"(have {n})")
+        mesh = _mesh(args, data=n // E, model=E)
+        wl = ep_gating_workload(cfg, mesh, loss_config=loss_cfg, image_size=args.image_size,
+                                freeze_experts=not args.unfreeze_experts, dtype=_dtype(args))
+    else:
+        mesh = _mesh(args)
+        wl = W.gating_workload(cfg, loss_config=loss_cfg,
+                               freeze_experts=not args.unfreeze_experts, dtype=_dtype(args),
+                               cache_features=args.cache_expert_features)
+    train, val = _sized_loaders(get_carla_sequence_loader, args, mesh,
                                 horizon=cfg.policy.num_waypoints)
-    trainer = _graft_init_from(Trainer(wl, train, val, _train_cfg(args, "gating")), args)
+    trainer = _graft_init_from(_trainer(wl, train, val, _train_cfg(args, "gating"), mesh),
+                               args)
     # expert checkpoints seed fresh state only: after a real restore,
     # grafting them again would roll the experts' BatchNorm statistics
     # (or, with --unfreeze-experts, their trained weights) back on every
@@ -476,8 +572,9 @@ def main(argv=None):
     pp.add_argument("--trunk-width", type=int, default=128,
                     help="channels of the deep trunk's blocks")
     pp.add_argument("--pp-microbatches", type=int, default=0,
-                    help="pipelines the deep trunk over a mesh (not ported yet; needs "
-                         "--trunk-depth > 0)")
+                    help="M>0 pipelines the deep trunk over the mesh's 'model' axis, "
+                         "GPipe-style with M microbatches (parallel/pp.py; needs "
+                         "--trunk-depth divisible by --model-axis > 1)")
     _add_common(pp)
     # the reference policy CLI defaults to epochs=0 (a dry-run shape check)
     pp.set_defaults(fn=cmd_policy, epochs=0, batch_size=32, learning_rate=3e-4,
@@ -501,13 +598,25 @@ def main(argv=None):
                     help="keep the pooled-feature cache here (keyed by the frozen expert "
                          "weights and the dataset); a re-run loads it instead of running "
                          "the eval pass again")
-    _reject(pg, _NOT_PORTED_GATING_FLAGS)
+    pg.add_argument("--parallelism", choices=["dp", "ep"], default="dp",
+                    help="dp: data parallel over the mesh; ep: one expert per 'model'-axis "
+                         "rank (parallel/ep.py; needs a world divisible by the experts)")
     _add_common(pg)
     pg.set_defaults(fn=cmd_gating, epochs=100, batch_size=8, learning_rate=1e-4,
                     weight_decay=1e-4)
 
     args = p.parse_args(argv)
-    return args.fn(args)
+    _world_guards(args)
+    from automoe_tpu_torch.parallel.mesh import clear_mesh, init_world
+
+    try:
+        if args.multihost:
+            _, dev = init_world(args.coordinator, args.num_processes, args.process_id,
+                                args.device)
+            args.device = str(dev)
+        return args.fn(args)
+    finally:
+        clear_mesh()
 
 
 if __name__ == "__main__":

@@ -37,6 +37,17 @@ With ema_decay > 0 the optimizer keeps an EMA of the parameters
 and it, not the raw weights, decides the best checkpoint. `profile_dir`
 records a torch.profiler trace of the first trained epoch there.
 
+Under a mesh of several ranks (`mesh=`, parallel/mesh.py), as the JAX
+Trainer runs under its device mesh: every rank builds the model from the
+same seed (a pipeline keeps its stage's blocks, parallel/pp.py), the
+workload's BatchNorms normalise over the data group
+(parallel/batchnorm.py) unless it says otherwise (expert parallelism),
+the optimizer reduces the gradients over the ranks, each step's metrics
+are averaged over them, validation sums each metric's sums and counts
+over them exactly, and only rank 0 logs, prints and writes checkpoints
+(in the single-process layout). A mesh of one rank runs the
+single-process path unchanged.
+
 Resume as in the JAX Trainer: resume='model' loads weights and BatchNorm
 statistics and starts at epoch 0; resume='full' also loads the optimizer
 (step count, moments, hence the schedule's position) and continues after
@@ -55,7 +66,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from automoe_tpu_torch.ckpt.checkpoint import CheckpointManager
+from automoe_tpu_torch.ckpt.checkpoint import (
+    CheckpointManager,
+    StageLayout,
+    load_state_into,
+    state_dict_from_checkpoint,
+)
 from automoe_tpu_torch.train.state import make_optimizer
 from automoe_tpu_torch.train.step import (
     make_eval_step,
@@ -99,7 +115,11 @@ class TrainConfig:
     grad_accum: int = 1  # K>1: one optimizer step from K loader batches
     ema_decay: float = 0.0  # d>0: EMA of the parameters, validated and saved
     debug_nans: bool = False  # anomaly detection + raise on a non-finite loss
-    device: Optional[str] = None  # default cuda
+    device: Optional[str] = None  # default cuda; a mesh's device wins
+    # M>0: the workload's model runs its trunk pipelined over the mesh's
+    # 'model' group in M microbatches (workloads.policy_workload(
+    # pipeline_mesh=, pipeline_microbatches=M))
+    pp_microbatches: int = 0
 
 
 def _optimizer_steps_per_epoch(n_batches: int, grad_accum: int) -> int:
@@ -109,17 +129,40 @@ def _optimizer_steps_per_epoch(n_batches: int, grad_accum: int) -> int:
     return max(1, n // grad_accum + n % grad_accum) if grad_accum > 1 else n
 
 
+class _NoLog:
+    """The metrics logger of a rank that is not rank 0."""
+
+    def log(self, *args, **kw) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class Trainer:
-    def __init__(self, workload: Workload, train_loader, val_loader, config: TrainConfig):
+    def __init__(self, workload: Workload, train_loader, val_loader, config: TrainConfig,
+                 mesh=None):
         if config.grad_accum > 1 and config.steps_per_call > 1:
             raise ValueError("grad_accum > 1 and steps_per_call > 1 are exclusive "
                              "(both group loader batches into one call)")
+        if config.pp_microbatches > 0 and (mesh is None or mesh.shape["model"] < 2):
+            raise ValueError("pipeline parallelism (pp_microbatches > 0) needs a mesh with a "
+                             "'model' axis > 1 (got "
+                             f"{None if mesh is None else dict(mesh.shape)})")
         self.wl = workload
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.cfg = config
-        self.device = resolve_device(config.device)
+        self.device = resolve_device(mesh.device if mesh is not None else config.device)
+        # a group of one issues no collective: the single-process path
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.main = self.mesh is None or self.mesh.is_main
         self.model = workload.init_model(config.seed, self.device)
+        stage_names = workload.stage_names(self.model)
+        if self.mesh is not None and workload.cross_rank_bn:
+            from automoe_tpu_torch.parallel.batchnorm import convert_batchnorm
+
+            convert_batchnorm(self.model, self.mesh)
         bpe = _optimizer_steps_per_epoch(len(train_loader), config.grad_accum)
         self.optimizer = make_optimizer(
             self.model.named_parameters(), learning_rate=config.learning_rate,
@@ -127,16 +170,22 @@ class Trainer:
             grad_clip=config.grad_clip, optimizer=config.optimizer,
             trainable_mask=workload.trainable_mask(self.model), schedule=config.schedule,
             steps_per_epoch=bpe, ema_decay=config.ema_decay)
+        if self.mesh is not None:
+            self.optimizer.shard(self.mesh, stage_names)
         self.train_step = make_train_step(workload.loss_fn)
         self.scan_step = (make_scan_train_step(workload.loss_fn)
                           if config.steps_per_call > 1 else None)
         self.accum_step = (make_grad_accum_train_step(workload.loss_fn)
                            if config.grad_accum > 1 else None)
         self.eval_step = make_eval_step(workload.loss_fn)
+        self.layout = (None if self.mesh is None
+                       else StageLayout(self.mesh, stage_names))
         self.ckpt = CheckpointManager(config.ckpt_root, workload.name, config.run_name,
                                       save_freq=config.save_freq,
-                                      async_save=config.async_ckpt, keep=config.keep_epochs)
-        self.logger = MetricsLogger(f"{config.runs_root}/{workload.name}_{config.run_name}")
+                                      async_save=config.async_ckpt, keep=config.keep_epochs,
+                                      layout=self.layout)
+        self.logger = (MetricsLogger(f"{config.runs_root}/{workload.name}_{config.run_name}")
+                       if self.main else _NoLog())
         self.timer = StepTimer(self.device)
         self.start_epoch = 0
         self.start_batch = 0  # batches of start_epoch already consumed
@@ -153,6 +202,13 @@ class Trainer:
         self._step_save_marker = 0
         self._pending: List[torch.Tensor] = []  # unread losses, oldest first
         self._loss_sum, self._loss_n = 0.0, 0
+
+    def load_variables(self, path, prefer_ema: bool = False) -> None:
+        """A checkpoint file's weights and BatchNorm statistics into the
+        model (--init-from), a pipeline stage cut out of its stacks."""
+        sd = state_dict_from_checkpoint(path, prefer_ema)
+        load_state_into(self.model, sd if self.layout is None else self.layout.cut(sd),
+                        str(path))
 
     def reset_ema(self) -> None:
         """Start the EMA again at the parameters: after weights were
@@ -225,6 +281,10 @@ class Trainer:
         self.timer.start()
         metrics = step_fn(self.model, self.optimizer, db,
                           (self.cfg.seed + 1, self.optimizer.count))
+        if self.mesh is not None:
+            if self.wl.after_step is not None:
+                self.wl.after_step(self.model)
+            metrics = self.mesh.mean_metrics(metrics)
         self.timer.stop()
         self._pending.append(metrics["loss"])
         self._read_losses(inflight)
@@ -315,12 +375,20 @@ class Trainer:
                 if real is not None:
                     real = int(real)
                     w = real / max(1, next(iter(db.values())).shape[0])
-                    db = {k: v[:real] for k, v in db.items()}
+                    # a pipeline's batch must still divide by its microbatches;
+                    # every rank's tail holds the same count (the sampler
+                    # equalises the shards)
+                    if real % max(1, self.cfg.pp_microbatches) == 0:
+                        db = {k: v[:real] for k, v in db.items()}
                 metrics = self.eval_step(self.model, db)
                 for k, v in metrics.items():
                     if getattr(v, "ndim", 1) == 0 or isinstance(v, (int, float)):
                         sums[k] = sums.get(k, 0.0) + float(v) * w
                 n += w
+        if self.mesh is not None:  # exact sums over the ranks, then one average
+            keys = sorted(sums)
+            total = self.mesh.sum_host([sums[k] for k in keys] + [n])
+            sums, n = dict(zip(keys, total[:-1])), total[-1]
         denom = n if n > 0 else 1.0
         avg = {k: v / denom for k, v in sums.items()}
         self.logger.log(self.optimizer.count, avg, prefix=prefix)
@@ -338,7 +406,7 @@ class Trainer:
         best = self.ckpt.best_val
         for epoch in range(self.start_epoch, self.cfg.epochs):
             profiling = (trace(self.cfg.profile_dir)
-                         if self.cfg.profile_dir and epoch == self.start_epoch
+                         if self.cfg.profile_dir and epoch == self.start_epoch and self.main
                          else contextlib.nullcontext())
             with profiling:
                 train_loss = self.train_epoch(epoch)
@@ -351,9 +419,10 @@ class Trainer:
             is_best = self.ckpt.save_epoch(self.model, self.optimizer, epoch, val_loss,
                                            config_dump)
             best = min(best, val_loss)
-            print(f"[{self.wl.name}] epoch {epoch + 1}/{self.cfg.epochs} "
-                  f"train {train_loss:.4f} val {raw_val:.4f}" + ema_note
-                  + (" *best*" if is_best else ""), flush=True)
+            if self.main:
+                print(f"[{self.wl.name}] epoch {epoch + 1}/{self.cfg.epochs} "
+                      f"train {train_loss:.4f} val {raw_val:.4f}" + ema_note
+                      + (" *best*" if is_best else ""), flush=True)
         self.ckpt.wait()  # queued writes land before callers read them
         stats = self.timer.stats()
         self.logger.log(self.optimizer.count, stats, prefix="train")

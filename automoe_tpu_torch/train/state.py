@@ -20,6 +20,11 @@ below is that chain written out in PyTorch with optax's arithmetic:
 `state_dict()` / `load_state_dict()` carry the step count and the moments,
 so a resumed run continues the same trajectory, schedule included.
 
+Under a mesh (`shard(mesh, stage_names)`) `step()` first reduces the
+gradients over the ranks (parallel/mesh.py::Mesh.reduce_gradients) and
+takes the clip's norm over the whole model: replicated parameters once,
+a pipeline stage's squares summed over the model group.
+
 `EMA` is the JAX TrainState's `ema_params`: an exponential moving average
 of every parameter (frozen ones included), e ← e·d + p·(1−d) after each
 optimizer step, started as a copy of the parameters (no bias
@@ -113,6 +118,8 @@ class Optimizer:
         self.optimizer = optimizer
         self.steps_per_epoch = steps_per_epoch
         self.count = 0  # optimizer steps taken (optax's schedule count)
+        self.mesh = None  # set by shard(): gradients reduced over its ranks
+        self.stage_local: List[bool] = [False] * len(self.params)
         self.state: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         if optimizer == "adamw":
             self.state = {n: (torch.zeros_like(p), torch.zeros_like(p)) for n, p in self.params}
@@ -146,6 +153,14 @@ class Optimizer:
             nu.copy_(sd["state"][n][1])
         self.count = int(sd["count"])
 
+    def shard(self, mesh, stage_names=()) -> None:
+        """Reduce gradients over `mesh` in every step; `stage_names` are the
+        parameters that live on their pipeline stage's ranks only."""
+        from automoe_tpu_torch.parallel.mesh import named_stage_local
+
+        self.mesh = mesh
+        self.stage_local = named_stage_local(self.params, stage_names)
+
     def zero_grad(self) -> None:
         for _, p in self.params:
             p.grad = None
@@ -153,8 +168,12 @@ class Optimizer:
     @torch.no_grad()
     def step(self) -> None:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for _, p in self.params]
+        if self.mesh is not None:
+            self.mesh.reduce_gradients(grads, self.stage_local)
         if grads:
-            norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+            norm = torch.sqrt(self.mesh.grad_norm_sq(grads, self.stage_local)
+                              if self.mesh is not None
+                              else sum((g.float() * g.float()).sum() for g in grads))
             clip = norm >= self.grad_clip
             grads = [torch.where(clip, g / norm * self.grad_clip, g) for g in grads]
         step_size = -self.lr_at(self.count)

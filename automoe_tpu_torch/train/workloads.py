@@ -113,6 +113,23 @@ class Workload:
     loss_fn: LossFn
     # model -> {parameter name: trainable}; None trains every parameter
     trainable_mask_fn: Optional[Callable[[nn.Module], Dict[str, bool]]] = None
+    # under a mesh of several ranks: BatchNorm over the data group (the
+    # JAX mesh's global-batch statistics); expert parallelism keeps its own
+    cross_rank_bn: bool = True
+    # under a mesh of several ranks: called after each train call (expert
+    # parallelism's BatchNorm statistics sync, parallel/ep.py)
+    after_step: Optional[Callable[[nn.Module], None]] = None
+    # (mesh, microbatches): the model's pipeline_blocks run pipelined over
+    # the mesh's 'model' group, each rank holding its stage (parallel/pp.py)
+    pipeline: Optional[Tuple[Any, int]] = None
+
+    def stage_names(self, model: nn.Module):
+        """The parameters that live on their pipeline stage's ranks only."""
+        if self.pipeline is None:
+            return set()
+        from automoe_tpu_torch.parallel.pp import pp_state_shardings
+
+        return pp_state_shardings(model)
 
     def trainable_mask(self, model: nn.Module) -> Optional[Dict[str, bool]]:
         return self.trainable_mask_fn(model) if self.trainable_mask_fn else None
@@ -125,6 +142,11 @@ class Workload:
         optimizer gives them no update (the JAX package's masked update)."""
         model = self.build_model()
         init_parameters(model, torch.Generator().manual_seed(seed))
+        if self.pipeline is not None:
+            from automoe_tpu_torch.parallel.pp import pp_shard_state
+
+            mesh, microbatches = self.pipeline
+            pp_shard_state(model, mesh, microbatches=microbatches)
         mask = self.trainable_mask(model) or {}
         for name, p in model.named_parameters():
             p.requires_grad_(mask.get(name, True))
@@ -283,16 +305,27 @@ def carla_nuscenes_2d_workload(*, num_queries: int = 196, num_classes: int = 10,
 
 def policy_workload(*, horizon: int = 8, context_dim: int = 0, backbone_dim: int = 512,
                     image_size: int = 256, dtype: torch.dtype = torch.float32,
-                    trunk_depth: int = 0, trunk_width: int = 128) -> Workload:
+                    trunk_depth: int = 0, trunk_width: int = 128, pipeline_mesh=None,
+                    pipeline_microbatches: int = 0) -> Workload:
     """Standalone TrajectoryPolicy training (the reference's
     train_carla_policy.py): loss = ADE + 2 FDE + 0.2 speed L1 + 0.1
     smoothness. With context_dim > 0 the batch's `context` vector feeds
     the heads. trunk_depth > 0 swaps EasyBackbone for the deep residual
     GroupNorm trunk (models/deep_policy.py::DeepTrajectoryPolicy) of
-    trunk_depth blocks of trunk_width channels. image_size is the JAX
-    signature's: the port's models take any input size, so nothing here
-    reads it."""
+    trunk_depth blocks of trunk_width channels. With pipeline_mesh and
+    pipeline_microbatches M > 0 the trunk runs pipeline-parallel over the
+    mesh's 'model' group (parallel/pp.py::grouped_pipeline_apply), each
+    rank holding its stage's blocks. image_size is the JAX signature's:
+    the port's models take any input size, so nothing here reads it."""
     del image_size
+    pipeline = None
+    if pipeline_microbatches > 0:
+        if trunk_depth <= 0:
+            raise ValueError("pipeline_microbatches needs trunk_depth > 0 (only the deep "
+                             "trunk is stage-partitionable)")
+        if pipeline_mesh is None:
+            raise ValueError("pipeline_microbatches needs pipeline_mesh")
+        pipeline = (pipeline_mesh, pipeline_microbatches)
 
     def build_model():
         if trunk_depth > 0:
@@ -310,7 +343,8 @@ def policy_workload(*, horizon: int = 8, context_dim: int = 0, backbone_dim: int
         res = policy_losses(out, batch["waypoints"], batch["speed"])
         return res["loss"], {k: v for k, v in res.items() if k != "loss"}
 
-    return Workload(name="carla_policy", build_model=build_model, loss_fn=loss_fn)
+    return Workload(name="carla_policy", build_model=build_model, loss_fn=loss_fn,
+                    pipeline=pipeline)
 
 
 # ---------------------------------------------------------------------------
@@ -363,9 +397,15 @@ def gating_workload(model_config: Any, *, loss_config: Optional[Mapping] = None,
         elif experts_eval:
             kw["experts_eval"] = True
         if key is not None:
+            from automoe_tpu_torch.parallel.mesh import active_mesh
             from automoe_tpu_torch.train.step import seed_from
 
             kw["generator"] = torch.Generator().manual_seed(seed_from((*key, ROUTING_FOLD)))
+            # dropout drawn part by part from the key and the data index, so
+            # expert parallelism (parallel/ep.py), which runs one expert a
+            # rank, draws what this dense forward draws
+            mesh = active_mesh()
+            kw["rng_key"] = (*key, 0 if mesh is None else mesh.data_index)
         with autocast(batch["image"].device, dtype):
             out = _float(model(batch, **kw))
         res = gating_losses(out, batch["waypoints"], batch["speed"], lcfg)

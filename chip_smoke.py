@@ -201,9 +201,35 @@ Phases, each of which must pass (none is caught):
      around a trainer that exits non-zero after one of its two epochs,
      relaunched with `--resume full` to the end; (e) `checks cuda`.
 
+ 21. the whole-block parallel modes (parallel/), through
+     `automoe-train-torch` at the CLI's widths with TF32 off, each rank a
+     process of its own with a timeout (a failed or hung rank fails the
+     run); first K1+K2 against its plain version at B=16 (the batch of a
+     data-parallel rank of 21b), as phase 9 does; (a) `bdd --task
+     detection` (256x256, box cap 48, batch 32, 1 epoch of 64 frames)
+     with the default mesh (a group of one: no collective), with
+     --no-mesh, and as a group of one over NCCL (`--multihost
+     --num-processes 1`): K1 once per step in each, step losses and
+     parameters held against the default run (losses rtol 1e-4,
+     parameters rtol 1e-3 / atol 4·lr·steps, the CPU test's rule for
+     AdamW), each one's step time; (b) the same global batch as 2 ranks
+     of 16 rows on this card (gloo, host staging), held against (a) by
+     the same rule, K1 once per step on each rank, each rank's step time
+     (two ranks share the card: no scaling figure); (c) `policy
+     --trunk-depth 16 --trunk-width 128 --pp-microbatches 4 --model-axis
+     2` (256x256, batch 32, 1 epoch) on 2 ranks against --no-mesh; (d)
+     `gating --parallelism ep --model-axis 4` (default config, 256x256,
+     batch 8, 1 epoch) on 4 ranks against dense gating in one process,
+     then `automoe-serve-torch --checkpoint <its best> --quantize` answers
+     4 TCP requests, K3 once per server batch.
 Prints the card's name and power limit, one JSON line of kernel results,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a CUDA
-device or outside a checkout of the repository.
+device or outside a checkout of the repository. It needs one card.
+
+    python3 chip_smoke.py --cards
+
+runs only phase 21's comparisons with one rank a card (NCCL), on a host of
+4 cards (`phase_parallel_cards`).
 """
 from __future__ import annotations
 
@@ -1861,6 +1887,300 @@ def phase_launch_supervise(tmp: Path, pre: Path):
     return out
 
 
+#: a rank of a phase-21 run: automoe-train-torch with its argv (JSON) and
+#: the mesh flags, TF32 off, a step's metrics logged every step; prints its
+#: result and its kernel launches (counted from 0) as JSON, last
+RANK_CODE = r"""
+import dataclasses, json, sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+from automoe_tpu_torch.ops import auction_kernel as ak, stem
+from automoe_tpu_torch.train import cli
+base = cli._train_cfg
+cli._train_cfg = lambda args, pipeline="": dataclasses.replace(base(args, pipeline), log_every=1)
+mesh_of, seen = cli._mesh, {}
+def _mesh(args, **kw):
+    mesh = mesh_of(args, **kw)
+    if mesh is not None:
+        seen.update(backend=mesh.backend, staging=mesh.staging_label)
+    return mesh
+cli._mesh = _mesh
+ak.reset_launch_counts()
+stem.reset_launch_counts()
+res = cli.main(json.loads(sys.argv[1]))
+print(json.dumps({"result": res, **seen, "launches": {"auction_solve": ak.LAUNCHES["auction_solve"],
+                                                      **stem.LAUNCHES}}))
+"""
+RANK_TIMEOUT_S = 600
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def cli_ranks(argv, world: int) -> list:
+    """`automoe-train-torch argv` as `world` processes of one world on this
+    card (--multihost on a free localhost port), each with its own timeout:
+    a rank that fails or hangs fails the phase. Each rank's JSON line."""
+    import os
+
+    coord = f"127.0.0.1:{free_port()}"
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_CODE, json.dumps(
+            argv + ["--multihost", "--coordinator", coord, "--num-processes", str(world),
+                    "--process-id", str(r)])],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    outs, failed = [], False
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            failed = True
+            p.kill()
+            outs.append(p.communicate())
+        failed = failed or p.returncode != 0
+    if failed:
+        for p in procs:
+            p.kill()
+        raise AssertionError("a rank failed: " + " | ".join(
+            f"rank {r} exit {p.returncode}: {o[1][-3000:]}"
+            for r, (p, o) in enumerate(zip(procs, outs))))
+    return [json.loads(o[0].strip().splitlines()[-1]) for o in outs]
+
+
+def backend_of(ranks, backend: str = "gloo", staging: str = "host") -> dict:
+    """The backend and staging every rank saw, checked against those
+    expected (gloo through host memory when the ranks share a card)."""
+    seen = {(r["backend"], r["staging"]) for r in ranks}
+    assert seen == {(backend, staging)}, seen
+    return {"backend": backend, "staging": staging}
+
+
+def in_process_cli(argv) -> dict:
+    """The same as a rank of cli_ranks, in this process (TF32 as the
+    caller set it)."""
+    import dataclasses
+
+    from automoe_tpu_torch.ops import auction_kernel as ak
+    from automoe_tpu_torch.ops import stem
+    from automoe_tpu_torch.train import cli
+
+    base = cli._train_cfg
+    cli._train_cfg = lambda args, pipeline="": dataclasses.replace(base(args, pipeline),
+                                                                   log_every=1)
+    try:
+        ak.reset_launch_counts()
+        stem.reset_launch_counts()
+        res = cli.main(argv)
+    finally:
+        cli._train_cfg = base
+    return {"result": res, "launches": {"auction_solve": ak.LAUNCHES["auction_solve"],
+                                        **stem.LAUNCHES}}
+
+
+def step_losses(run_dir: Path) -> list:
+    return [r["train/loss"] for r in map(json.loads, (run_dir / "metrics.jsonl")
+                                         .read_text().splitlines()) if "train/loss" in r]
+
+
+def held_run(got: dict, want: dict, lr: float, what: str) -> dict:
+    """A run (its `last` checkpoint and per-step losses) against a
+    reference run, with tests/test_torch_port_parallel_dp.py's CLI rule:
+    losses rtol 1e-4, parameters rtol 1e-3 / atol 4·lr·steps (AdamW moves a
+    parameter whose gradient is rounding noise by up to ~lr a step)."""
+    from automoe_tpu_torch.ckpt import load_checkpoint
+
+    a, b = load_checkpoint(got["ckpt"]), load_checkpoint(want["ckpt"])
+    la, lb = step_losses(got["runs"]), step_losses(want["runs"])
+    assert len(la) == len(lb) == a["step"] == b["step"] > 0, (what, la, lb)
+    np.testing.assert_allclose(la, lb, rtol=1e-4, err_msg=what)
+    atol = 4 * lr * a["step"]
+    worst = 0.0
+    for k, v in b["model_state_dict"].items():
+        w = a["model_state_dict"][k]
+        assert w.shape == v.shape, (what, k, w.shape, v.shape)
+        if v.is_floating_point():
+            np.testing.assert_allclose(w.numpy(), v.numpy(), rtol=1e-3, atol=atol,
+                                       err_msg=f"{what}: {k}")
+            worst = max(worst, float((w - v).abs().max()))
+    loss_err = float(np.max(np.abs(np.subtract(la, lb)) / np.abs(lb)))
+    return {"steps": a["step"], "step_losses": la, "max_loss_rel_err": loss_err,
+            "max_param_abs_err": worst, "param_atol": atol}
+
+
+def phase_parallel(tmp: Path, frames, speeds, smi: str):
+    """21: the whole-block parallel modes through automoe-train-torch at the
+    CLI's widths, TF32 off, each run's kernel launches counted from 0:
+    (a) `bdd --task detection` (256x256, box cap 48, batch 32, 1 epoch of
+    64 frames) with the default mesh (a group of one: the single-process
+    path) in this process, then with --no-mesh, then as a group of one
+    over NCCL (--multihost --num-processes 1): the same losses and K1
+    launches per step; (b) the same global batch as 2 ranks of 16 rows on
+    this card (gloo, host staging), held against (a); (c) `policy
+    --trunk-depth 16 --trunk-width 128 --pp-microbatches 4 --model-axis 2`
+    (256x256, batch 32) on 2 ranks against --no-mesh; (d) `gating
+    --parallelism ep` on 4 ranks (the default 4-expert config, 256x256,
+    batch 8) against dense gating in one process, then
+    `automoe-serve-torch --checkpoint <its best> --quantize` (K3)."""
+    from automoe_tpu_torch.tools.synth import synth_bdd_detection, synth_carla_sequence
+
+    out = {"card": smi}
+    det = synth_bdd_detection(tmp / "bdd", n_per_split={"train": 64, "val": 32}, size=256,
+                              max_boxes=20, seed=SEED)
+
+    def det_argv(name, batch, *extra):
+        return ["bdd", "--task", "detection", "--data-root", str(det), "--image-size", "256",
+                "--box-cap", "48", "--batch-size", str(batch), "--epochs", "1",
+                "--ckpt-root", str(tmp / name / "ck"), "--runs-root", str(tmp / name / "runs"),
+                *extra]
+
+    def det_run(name):
+        return {"ckpt": tmp / name / "ck" / "bdd_detection" / "run" / "last.pt",
+                "runs": tmp / name / "runs" / "bdd_detection_run"}
+
+    # (a) one process: the default mesh, --no-mesh, an NCCL group of one
+    steps_det = 64 // 32 + 32 // 32  # train + val steps, K1 once each
+    a = {"default mesh": in_process_cli(det_argv("a_default", 32)),
+         "--no-mesh": in_process_cli(det_argv("a_nomesh", 32, "--no-mesh")),
+         "NCCL group of one": cli_ranks(det_argv("a_nccl", 32), 1)[0]}
+    assert (a["NCCL group of one"]["backend"], a["NCCL group of one"]["staging"]) == (
+        "nccl", "none"), a["NCCL group of one"]
+    out["a"] = {}
+    for name, r in a.items():
+        assert r["launches"]["auction_solve"] == steps_det, (name, r["launches"])
+        out["a"][name] = {"k1_launches": r["launches"]["auction_solve"],
+                          "k1_launches_per_step": r["launches"]["auction_solve"] / steps_det,
+                          "step_ms_p50": r["result"]["step_ms_p50"],
+                          "step_ms_mean": r["result"]["step_ms_mean"]}
+    out["a"]["--no-mesh vs default"] = held_run(det_run("a_nomesh"), det_run("a_default"),
+                                                1e-4, "21a --no-mesh")
+    out["a"]["NCCL group of one vs default"] = held_run(det_run("a_nccl"),
+                                                        det_run("a_default"), 1e-4,
+                                                        "21a nccl")
+    print(f"phase 21a ({smi}): backend none (default mesh, --no-mesh) and nccl (group of "
+          f"one), staging none: {out['a']}", flush=True)
+
+    # (b) the same global batch on 2 ranks sharing this card
+    ranks = cli_ranks(det_argv("b", 16), 2)
+    for r in ranks:  # 2 train + 1 val steps of 16 rows a rank
+        assert r["launches"]["auction_solve"] == steps_det, r["launches"]
+    out["b"] = {**backend_of(ranks), "ranks": 2,
+                "k1_launches_per_rank": [r["launches"]["auction_solve"] for r in ranks],
+                "step_ms_p50_per_rank": [r["result"]["step_ms_p50"] for r in ranks],
+                "step_ms_p50_one_rank": a["default mesh"]["result"]["step_ms_p50"],
+                "note": "two ranks share one card: no scaling figure",
+                **held_run(det_run("b"), det_run("a_default"), 1e-4, "21b")}
+    print(f"phase 21b ({smi}): 2 ranks on one card, backend {out['b']['backend']}, staging "
+          f"{out['b']['staging']} (two ranks share one card: no scaling figure): {out['b']}",
+          flush=True)
+
+    # (c) the deep trunk pipelined over 2 ranks against one process
+    seq = synth_carla_sequence(tmp / "seq", n_per_split={"train": 96, "val": 48}, runs=2,
+                               size=256, seed=SEED)
+
+    def seq_argv(cmd, name, batch, *extra):
+        return [cmd, "--data-root", str(seq), "--image-size", "256", "--batch-size",
+                str(batch), "--epochs", "1", "--ckpt-root", str(tmp / name / "ck"),
+                "--runs-root", str(tmp / name / "runs"), *extra]
+
+    deep = ("--trunk-depth", "16", "--trunk-width", "128")
+    one = in_process_cli(seq_argv("policy", "c_one", 32, *deep, "--no-mesh"))
+    pp = cli_ranks(seq_argv("policy", "c_pp", 32, *deep, "--pp-microbatches", "4",
+                            "--model-axis", "2"), 2)
+
+    def pol(name):
+        return {"ckpt": tmp / name / "ck" / "carla_policy" / "run" / "last.pt",
+                "runs": tmp / name / "runs" / "carla_policy_run"}
+
+    out["c"] = {**backend_of(pp), "ranks": 2, "microbatches": 4,
+                "step_ms_p50_per_rank": [r["result"]["step_ms_p50"] for r in pp],
+                "step_ms_p50_one_rank": one["result"]["step_ms_p50"],
+                **held_run(pol("c_pp"), pol("c_one"), 3e-4, "21c")}
+    print(f"phase 21c ({smi}): policy --pp-microbatches 4 --model-axis 2 on 2 ranks, "
+          f"backend {out['c']['backend']}, staging {out['c']['staging']}: {out['c']}",
+          flush=True)
+
+    # (d) expert-parallel gating on 4 ranks against dense gating, then serving
+    dense = in_process_cli(seq_argv("gating", "d_dense", 8))
+    ep = cli_ranks(seq_argv("gating", "d_ep", 8, "--parallelism", "ep", "--model-axis", "4"),
+                   4)
+
+    def gat(name, wl):
+        return {"ckpt": tmp / name / "ck" / wl / "run" / "last.pt",
+                "runs": tmp / name / "runs" / f"{wl}_run"}
+
+    out["d"] = {**backend_of(ep), "ranks": 4,
+                "step_ms_p50_per_rank": [r["result"]["step_ms_p50"] for r in ep],
+                "step_ms_p50_dense": dense["result"]["step_ms_p50"],
+                **held_run(gat("d_ep", "gating_ep"), gat("d_dense", "gating"), 1e-4, "21d")}
+    best = tmp / "d_ep" / "ck" / "gating_ep" / "run" / "best.pt"
+    n_batches, k3 = serve_four(["--checkpoint", str(best), "--quantize"], frames, speeds)
+    out["d"]["serve"] = {"batches": n_batches, "k3_launches": k3}
+    print(f"phase 21d ({smi}): gating --parallelism ep on 4 ranks, backend "
+          f"{out['d']['backend']}, staging {out['d']['staging']}; served with --quantize, K3 "
+          f"{k3} launches in {n_batches} batches: {out['d']}", flush=True)
+    return out
+
+
+def phase_parallel_cards(tmp: Path, smi: str):
+    """`python3 chip_smoke.py --cards`, on a host of 4 cards: phase 21's
+    comparisons with one rank a card, so NCCL (TF32 off): `bdd --task
+    detection` on 4 data ranks of 8 rows against one process of 32; the
+    deep policy pipelined over 2 stages and 2 data rows (16 rows each)
+    against --no-mesh at 32; `gating --parallelism ep` on 4 ranks against
+    dense gating. Held as phase 21 holds its runs; each rank's step time."""
+    import torch
+
+    from automoe_tpu_torch.tools.synth import synth_bdd_detection, synth_carla_sequence
+
+    assert torch.cuda.device_count() >= 4, "--cards needs 4 cards"
+    out = {"card": smi, "cards": torch.cuda.device_count()}
+    det = synth_bdd_detection(tmp / "bdd", n_per_split={"train": 64, "val": 32}, size=256,
+                              max_boxes=20, seed=SEED)
+    seq = synth_carla_sequence(tmp / "seq", n_per_split={"train": 96, "val": 48}, runs=2,
+                               size=256, seed=SEED)
+
+    def argv(cmd, root, name, batch, *extra):
+        return [cmd, "--data-root", str(root), "--image-size", "256", "--batch-size",
+                str(batch), "--epochs", "1", "--ckpt-root", str(tmp / name / "ck"),
+                "--runs-root", str(tmp / name / "runs"), *extra]
+
+    def run(name, wl):
+        return {"ckpt": tmp / name / "ck" / wl / "run" / "last.pt",
+                "runs": tmp / name / "runs" / f"{wl}_run"}
+
+    det_kw = ("--task", "detection", "--box-cap", "48")
+    deep = ("--trunk-depth", "16", "--trunk-width", "128")
+    cases = {  # name: (reference run, rank run), each (dir, argv, workload); lr
+        "dp 4 ranks": (("dp_one", argv("bdd", det, "dp_one", 32, *det_kw), "bdd_detection"),
+                       ("dp", argv("bdd", det, "dp", 8, *det_kw), "bdd_detection"), 1e-4),
+        "pp 2 x dp 2": (("pp_one", argv("policy", seq, "pp_one", 32, *deep, "--no-mesh"),
+                         "carla_policy"),
+                        ("pp", argv("policy", seq, "pp", 16, *deep, "--pp-microbatches", "4",
+                                    "--model-axis", "2"), "carla_policy"), 3e-4),
+        "ep 4 ranks": (("ep_one", argv("gating", seq, "ep_one", 8), "gating"),
+                       ("ep", argv("gating", seq, "ep", 8, "--parallelism", "ep"),
+                        "gating_ep"), 1e-4)}
+    for name, ((ref_dir, ref_argv, ref_wl), (dir_, rank_argv, wl), lr) in cases.items():
+        one = in_process_cli(ref_argv)
+        ranks = cli_ranks(rank_argv, 4)
+        out[name] = {**backend_of(ranks, "nccl", "none"), "ranks": 4,
+                     "step_ms_p50_per_rank": [r["result"]["step_ms_p50"] for r in ranks],
+                     "step_ms_p50_one_process": one["result"]["step_ms_p50"],
+                     "k1_launches_per_rank": [r["launches"]["auction_solve"] for r in ranks],
+                     **held_run(run(dir_, wl), run(ref_dir, ref_wl), lr, name)}
+        print(f"cards, {name} ({smi}): {out[name]}", flush=True)
+    return out
+
+
 def rel_err(a, b) -> float:
     a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
     return float(np.abs(a - b).mean() / (np.abs(a).mean() + 1e-12))
@@ -1892,6 +2212,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if "--cards" in sys.argv[1:]:
+        return main_cards()
     from automoe_tpu_torch.configs import default_model_config
     from automoe_tpu_torch.data import native_packed
     from automoe_tpu_torch.infer import InferenceEngine
@@ -2076,6 +2398,19 @@ def main() -> int:
         campaign = phase_campaign(Path(tmp), smi)
     camp = campaign["a-b campaign"]
 
+    # K1+K2 at a data-parallel rank's batch: 21b's ranks match B=16 each
+    k12_b16 = phase_auction(auction_kernel, [
+        (f"{name} B=16", b[:16].contiguous(), v[:16].contiguous(), e[:16].contiguous(), it)
+        for name, b, v, e, it in auction_regimes(gen)])
+
+    # 21. the whole-block parallel modes through the entry points, TF32 off:
+    # a group of one, data parallel on 2 ranks, the pipeline, expert parallel
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    print(smi, flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        parallel = phase_parallel(Path(tmp), frames, speeds, smi)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
+
     src = "automoe_tpu_torch/csrc/stem.cu"
     main_, big = k3[B_MAIN], k3[128]
     kernels = [{
@@ -2108,7 +2443,9 @@ def main() -> int:
                              "the int8 bundle, a batch of 8 and one of 1 (phase 18a)":
                                  bundles["int8"]["launches"],
                              "automoe-serve-torch --bundle <int8 bundle> (phase 18b)":
-                                 bundles["serve --bundle"]["k3_launches"]},
+                                 bundles["serve --bundle"]["k3_launches"],
+                             "serve the expert-parallel gating checkpoint (phase 21d)":
+                                 parallel["d"]["serve"]["k3_launches"]},
         "b128": {k: big[k] for k in ("ms", "ms_blocks", "wrapper_ms", "plain_ms", "unfused_ms",
                                      "bound_ms", "max_abs_err", "diff_frac",
                                      "mixed_sign_inv_max_abs_err",
@@ -2221,6 +2558,10 @@ def main() -> int:
                for k, v in camp["k1_launches"].items()},
             "the staged program's nuscenes-2d steps, K2 alone (phase 20)":
                 camp["k2_alone_launches_nuscenes_2d"],
+            **{f"bdd, {k} (phase 21a)": v["k1_launches"]
+               for k, v in parallel["a"].items() if "k1_launches" in v},
+            "bdd on 2 ranks of one card, rank 0 at B=16 (phase 21b)":
+                parallel["b"]["k1_launches_per_rank"][0],
             **{f"automoe-eval-torch {name}, max_iters=0 (phase 16)": v["launches"].get(
                 "auction_solve", 0) for name, v in evals.items()
                if name in ("bdd detection", "bdd detection --quantize", "nuscenes",
@@ -2230,7 +2571,8 @@ def main() -> int:
                                           "scipy_cost_gap", "scipy_cost_gap_rel",
                                           "escalated", "rounds_max",
                                           "jv_scans_max", "max_iters")}
-           for v, names in ((k12, ("degenerate", "jv")), (k12_nus, list(k12_nus)))
+           for v, names in ((k12, ("degenerate", "jv")), (k12_nus, list(k12_nus)),
+                            (k12_b16, list(k12_b16)))
            for name in names},
     })
     print(json.dumps({"engine_step_ms_b8": steps}), flush=True)
@@ -2246,7 +2588,31 @@ def main() -> int:
     print(json.dumps({"bundles": bundles}), flush=True)
     print(json.dumps({"deep_policy": deep}), flush=True)
     print(json.dumps({"campaign": campaign}), flush=True)
+    print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main_cards() -> int:
+    """`--cards`: only phase 21's comparisons with one rank a card."""
+    import torch
+
+    from automoe_tpu_torch.ops import auction_kernel, stem
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    auction_kernel.build()
+    stem.build()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        cards = phase_parallel_cards(Path(tmp), smi)
+    print(json.dumps({"parallel_cards": cards}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

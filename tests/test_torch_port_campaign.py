@@ -177,6 +177,9 @@ def test_launcher_policy_gating_skips_gating(seq_root, tmp_path, monkeypatch, ca
 
 
 def test_launcher_fails_a_stage_and_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
+    """A stage that fails stops the launcher; the mesh flags are forwarded
+    to every stage, which refuses a mesh larger than its world with the
+    JAX package's words."""
     from automoe_tpu_torch.tools.launch import main
 
     monkeypatch.setenv("SKIP_GATING", "1")
@@ -186,8 +189,10 @@ def test_launcher_fails_a_stage_and_refuses_what_is_not_ported(tmp_path, monkeyp
     summary = json.loads((tmp_path / "logs" / "policy-gating_launchtest.json").read_text())
     assert [r["status"] for r in summary] == ["FAILED"]
     with pytest.raises(SystemExit) as e:
-        main(_launch_argv(tmp_path, tmp_path, "--device", "cpu", "--no-mesh"))
-    assert e.value.code == 2 and "--no-mesh is not ported yet" in capsys.readouterr().err
+        main(_launch_argv(tmp_path, tmp_path, "--device", "cpu", "--model-axis", "2"))
+    said = capsys.readouterr()
+    assert e.value.code == 1 and "mesh 1x2 != 1 devices" in said.err + said.out
+    assert "policy         FAILED" in said.out
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(_launch_argv(tmp_path, tmp_path / "nogpu"))

@@ -300,8 +300,10 @@ def test_cli_deep_policy_trains_and_resumes(seq_root, tmp_path):
 
 
 @pytest.mark.parametrize("depth,match", [
-    ("0", "needs --trunk-depth > 0"), ("2", "--pp-microbatches is not ported yet")])
+    ("0", "needs --trunk-depth > 0"), ("2", "--pp-microbatches needs --model-axis > 1")])
 def test_cli_pp_microbatches_messages(seq_root, tmp_path, depth, match):
+    """The JAX CLI's refusals: no deep trunk, then a mesh without a
+    'model' axis to pipeline over (the world here is one process)."""
     from automoe_tpu_torch.train.cli import main
 
     argv = _argv(seq_root, tmp_path, "--epochs", "1", "--pp-microbatches", "2")

@@ -140,7 +140,9 @@ def test_package_imports_without_jax():
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'automoe_tpu', 'benchmarks')]\n"
         "assert not bad, bad\n"
-        "assert 'automoe_tpu_torch.evals.cli' in names and len(names) >= 87, names\n"
+        "assert 'automoe_tpu_torch.evals.cli' in names and len(names) >= 92, names\n"
+        "assert {'automoe_tpu_torch.parallel.' + m for m in ('mesh', 'batchnorm', 'pp', 'ep')}"
+        " <= set(names), names\n"
         "assert {'automoe_tpu_torch.serving.export', 'automoe_tpu_torch.models.fused_experts'}"
         " <= set(names), names\n"
         "assert {'automoe_tpu_torch.infer.' + m for m in ('sim', 'run_automoe', 'carla_sim')}"

@@ -7,6 +7,7 @@ The JAX trajectory is computed once per module."""
 from __future__ import annotations
 
 import json
+import re
 
 import jax
 import jax.numpy as jnp
@@ -265,23 +266,55 @@ def test_train_cli_finetune_carla_on_cpu(tmp_path):
                for r in vals)
 
 
-@pytest.mark.parametrize("argv", [
-    ["nuscenes", "--spatial"],
-    ["bdd", "--task", "segmentation", "--tp-min-dim", "1"],
-    ["bdd", "--task", "detection", "--multihost"],
-    ["finetune-carla", "--task", "detection", "--model-axis", "2"],
-    ["preset", "carla_finetune_v5e", "--model-axis", "2"],  # a preset's overrides too
-    ["policy", "--trunk-depth", "4", "--pp-microbatches", "2"],
-    ["gating", "--cache-expert-features", "--no-mesh"],
-    ["gating", "--parallelism", "ep"],
+@pytest.mark.parametrize("argv,match", [
+    (["nuscenes", "--spatial"], "--spatial is not ported yet"),
+    (["bdd", "--task", "segmentation", "--tp-min-dim", "1"], "--tp-min-dim is not ported yet"),
+    (["bdd", "--task", "detection", "--multihost"], "--multihost needs --coordinator"),
+    (["finetune-carla", "--task", "detection", "--model-axis", "2"],
+     "mesh 1x2 != 1 devices"),
+    # a preset's overrides meet the same checks
+    (["preset", "carla_finetune_v5e", "--model-axis", "2"], "mesh 1x2 != 1 devices"),
+    (["policy", "--trunk-depth", "4", "--pp-microbatches", "2", "--epochs", "1"],
+     "--pp-microbatches needs --model-axis > 1"),
+    (["gating", "--cache-expert-features", "--parallelism", "ep"],
+     "--cache-expert-features removes the expert compute that --parallelism ep"),
+    (["gating", "--parallelism", "ep"],
+     r"--parallelism ep needs device count divisible by 4 experts \(have 1\)"),
+    (["gating", "--parallelism", "ep", "--no-mesh"], "--parallelism ep requires a device mesh"),
+    (["gating", "--cache-expert-features", "--device-resident", "--multihost",
+      "--coordinator", "127.0.0.1:1", "--num-processes", "2", "--process-id", "0"],
+     "--cache-expert-features on more than one rank is not ported yet"),
+    (["gating", "--device-resident", "--multihost", "--coordinator", "127.0.0.1:1",
+      "--num-processes", "2", "--process-id", "1"],
+     "--device-resident on more than one rank is not ported yet"),
+    (["bdd", "--task", "detection", "--no-mesh", "--multihost", "--coordinator",
+      "127.0.0.1:1", "--num-processes", "2", "--process-id", "0"],
+     "--no-mesh runs one process with no process group"),
 ], ids=["subcommand", "task", "flag", "flag-with-value", "preset", "policy-deep-trunk",
-        "gating-feature-cache", "gating-ep"])
-def test_train_cli_rejects_what_is_not_ported(argv, tmp_path):
+        "gating-feature-cache", "gating-ep", "gating-ep-no-mesh",
+        "gating-feature-cache-multi-rank", "gating-device-resident-multi-rank",
+        "no-mesh-multi-rank"])
+def test_train_cli_rejects_what_is_not_ported(argv, match, tmp_path, capsys):
+    """The JAX CLI's refusals, with its words, and "not ported yet" for
+    what the port does not have (TP, SP, the multi-rank feature cache and
+    resident loader); none of these reaches a process group."""
     from automoe_tpu_torch.train.cli import main
 
     with pytest.raises(SystemExit) as e:
-        main(argv + ["--data-root", str(tmp_path)] if len(argv) > 1 else argv)
+        main(argv + ["--data-root", str(tmp_path), "--device", "cpu"] if len(argv) > 1
+             else argv)
     assert e.value.code != 0
+    # argparse's errors go to stderr; the CLI's own refusals are the exit message
+    said = str(e.value.code) + capsys.readouterr().err
+    assert re.search(match, said), said
+
+
+def test_serve_cli_refuses_data_parallel(capsys):
+    from automoe_tpu_torch.serving.cli import main
+
+    with pytest.raises(SystemExit) as e:
+        main(["--data-parallel", "--device", "cpu"])
+    assert e.value.code == 2 and "--data-parallel is not ported yet" in capsys.readouterr().err
 
 
 def test_default_device_and_matcher(monkeypatch, tmp_path):
