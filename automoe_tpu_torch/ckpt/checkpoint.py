@@ -34,7 +34,8 @@ calls it first.
 
 Under a mesh of several ranks (`layout=`, a `StageLayout`), every rank
 calls save and restore. A save gathers the pipeline stages' blocks (the
-layout's names) over the model group back into their [L, ...] stacks, in the weights, the
+layout's names) over the model group back into their [L, ...] stacks, and
+tensor parallelism's slices back into whole weights, in the weights, the
 optimizer moments and the EMA, so the file has the single-process layout
 whatever wrote it; rank 0 alone writes, between two barriers (the JAX
 package's process-0 write). Every rank restores from the same file and
@@ -114,31 +115,43 @@ def load_variables(path, module: nn.Module, *, prefer_ema: bool = False) -> None
 
 
 class StageLayout:
-    """How a mesh splits named tensors: those in `names` hold this rank's
-    stage of an [L, ...] stack (parallel/pp.py), the rest are whole."""
+    """How a mesh splits named tensors over its model group: `dims` maps
+    each split tensor to the dim it is cut along (dim 0 for a pipeline
+    stage's blocks of an [L, ...] stack, parallel/pp.py; each weight's
+    output dim under tensor parallelism, parallel/tp.py); the rest are
+    whole."""
 
-    def __init__(self, mesh, names=()):
+    def __init__(self, mesh, dims: Mapping[str, int]):
         self.mesh = mesh
-        self.names = set(names)
+        self.dims: Dict[str, int] = dict(dims)
 
     def gather(self, named: Mapping[str, Any]) -> Dict[str, Any]:
-        """The whole stacks back from the model group (a collective)."""
+        """The whole tensors back from the model group (a collective)."""
         from automoe_tpu_torch.parallel.mesh import MODEL_AXIS
 
-        if not self.names or self.mesh.shape[MODEL_AXIS] == 1:
+        if not self.dims or self.mesh.shape[MODEL_AXIS] == 1:
             return dict(named)
-        return {k: (self.mesh.all_gather(v.contiguous(), "model").flatten(0, 1)
-                    if k in self.names else v) for k, v in named.items()}
+        return {k: (torch.cat(self.mesh.all_gather(v.contiguous(), "model").unbind(0),
+                              dim=self.dims[k])
+                    if k in self.dims else v) for k, v in named.items()}
 
     def cut(self, named: Mapping[str, Any]) -> Dict[str, Any]:
-        """This rank's stage of each whole stack."""
-        from automoe_tpu_torch.parallel.pp import stage_param_sharding
+        """This rank's slice of each whole tensor (contiguous: slice m of
+        M along its dim)."""
+        from automoe_tpu_torch.parallel.mesh import MODEL_AXIS
 
-        if not self.names:
+        if not self.dims:
             return dict(named)
-        mine = stage_param_sharding(self.mesh)(
-            {k: v for k, v in named.items() if k in self.names})
-        return {**named, **mine}
+        M, m = self.mesh.shape[MODEL_AXIS], self.mesh.model_index
+        out = dict(named)
+        for k, d in self.dims.items():
+            if k in out:
+                v = torch.as_tensor(out[k])
+                if v.shape[d] % M:
+                    raise ValueError(f"{k}: dim {d} of {tuple(v.shape)} must divide by the "
+                                     f"mesh 'model' axis ({M})")
+                out[k] = v.chunk(M, dim=d)[m]
+        return out
 
 
 class CheckpointManager:

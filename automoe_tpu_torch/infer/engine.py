@@ -5,10 +5,20 @@ ops/resize.py) → ImageNet normalize → AutoMoE run there, in the engine's
 dtype (bf16 by default). `quantize=True` swaps the expert trunks for the
 int8 path (serving/quant.py), whose stem is the hand-written kernel K3
 (or K4 with stem_variant="pool").
+
+`devices=[...]` serves data-parallel (the JAX engine's `mesh=` with a
+'data' axis; `automoe-serve-torch --data-parallel`): one replica of the
+model (and of the int8 pack, so K3 runs on each) per device, all in this
+process. A batch is repeat-padded to a multiple of the replicas
+(`batch_multiple`), each replica takes a contiguous slice, every slice is
+enqueued on its own device's stream with no host wait in between, and
+`fetch` joins the slices and trims the padding.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import contextlib
+import copy
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +46,7 @@ class InferenceEngine:
         calib_frames: Optional[np.ndarray] = None,
         stem_variant: str = "fused",
         device=None,
+        devices: Optional[Sequence] = None,
     ):
         """state_dict: weights under the reference torch names (e.g. from
         ckpt.state_dict_from_jax or a reference .pth); None → seeded
@@ -43,7 +54,13 @@ class InferenceEngine:
         calibrated on `calib_frames` (raw uint8 [N,H,W,3]; prefer real
         frames — the fallback is two uniform-noise frames).
         device: default cuda; raises when no GPU is present unless the
-        caller passes device="cpu"."""
+        caller passes device="cpu". devices: one replica per device
+        (module docstring); `device` is then devices[0]."""
+        if devices is not None:
+            devices = [resolve_device(d) for d in devices]
+            if not devices:
+                raise ValueError("devices must name at least one device")
+            device = devices[0]
         self.device = resolve_device(device)
         self.config = load_model_config(model_config)
         self.dtype = dtype
@@ -63,6 +80,7 @@ class InferenceEngine:
 
         self._qexperts = None
         self._quant_fwd = None
+        qpack = None
         if quantize:
             from automoe_tpu_torch.serving.quant import (
                 make_quant_forward,
@@ -84,6 +102,36 @@ class InferenceEngine:
                 self.config, qpack["scales"], dtype=dtype, stem_variant=stem_variant
             )
         self.model = model.to(dtype).eval()
+        self._replicas: List["InferenceEngine"] = [self]
+        for d in (devices or [])[1:]:
+            self._replicas.append(self._replica(d, qpack))
+        self.batch_multiple = len(self._replicas)
+
+    def _replica(self, device: torch.device, qpack) -> "InferenceEngine":
+        """This engine's model, constants and int8 pack on `device`."""
+        r = copy.copy(self)
+        r.device = device
+        r.model = copy.deepcopy(self.model).to(device)
+        r._mats = tuple(m.to(device) for m in self._mats)
+        r._mean, r._std = self._mean.to(device), self._std.to(device)
+        if qpack is not None:
+            from automoe_tpu_torch.serving.quant import prepare_qexperts
+
+            r._qexperts = prepare_qexperts(qpack, dtype=self.dtype, device=device)
+        r._replicas = [r]
+        r.batch_multiple = 1
+        return r
+
+    def _pad_group(self, frames: np.ndarray, speeds: np.ndarray):
+        """Repeat-pad a batch up to a multiple of the replicas (identity
+        with one); returns (frames, speeds, real_b)."""
+        b, m = frames.shape[0], self.batch_multiple
+        if m <= 1 or b % m == 0:
+            return frames, speeds, b
+        pad = (-b) % m
+        frames = np.concatenate([frames, np.repeat(frames[-1:], pad, 0)])
+        speeds = np.concatenate([speeds, np.repeat(speeds[-1:], pad, 0)])
+        return frames, speeds, b
 
     def _preprocess(self, frame_u8: torch.Tensor) -> torch.Tensor:
         """uint8 [B,H,W,3] → /255 → resize → normalize, NHWC. Division and
@@ -145,9 +193,9 @@ class InferenceEngine:
 
     def dispatch_batch(self, frames_u8: np.ndarray, speeds_kmh: np.ndarray):
         """`infer_batch` without the host fetch: uploads the batch and
-        enqueues the step on the current stream, returning (device
-        outputs, real_b) without waiting for the device. Complete with
-        `fetch`."""
+        enqueues the step on the current stream (of each replica's
+        device), returning (device outputs, real_b) without waiting for
+        the device. Complete with `fetch`."""
         speeds = np.asarray(speeds_kmh, np.float32).reshape(-1, 1)
         frames_u8 = np.asarray(frames_u8, np.uint8)
         if frames_u8.shape[0] != speeds.shape[0]:
@@ -155,12 +203,31 @@ class InferenceEngine:
                 f"batch mismatch: {frames_u8.shape[0]} frames vs "
                 f"{speeds.shape[0]} speeds"
             )
-        out = self._step(torch.from_numpy(frames_u8).to(self.device),
-                         torch.from_numpy(speeds).to(self.device))
-        return out, frames_u8.shape[0]
+        if len(self._replicas) == 1:
+            out = self._step(torch.from_numpy(frames_u8).to(self.device),
+                             torch.from_numpy(speeds).to(self.device))
+            return out, frames_u8.shape[0]
+        frames_u8, speeds, real_b = self._pad_group(frames_u8, speeds)
+        per = frames_u8.shape[0] // len(self._replicas)
+        outs = []
+        for i, r in enumerate(self._replicas):
+            rows = slice(i * per, (i + 1) * per)
+            cuda = r.device.type == "cuda"
+            with torch.cuda.device(r.device) if cuda else contextlib.nullcontext():
+                f, s = (torch.from_numpy(np.ascontiguousarray(a[rows]))
+                        for a in (frames_u8, speeds))
+                if cuda:  # pinned: the copy is queued, the host goes on
+                    f, s = f.pin_memory(), s.pin_memory()
+                outs.append(r._step(f.to(r.device, non_blocking=cuda),
+                                    s.to(r.device, non_blocking=cuda)))
+        return outs, real_b
 
     @staticmethod
-    def fetch(out: Dict[str, torch.Tensor], real_b: int) -> Dict[str, np.ndarray]:
+    def fetch(out, real_b: int) -> Dict[str, np.ndarray]:
         """Copy a `dispatch_batch` result to the host (waits for the
-        device step)."""
-        return {k: v[:real_b].cpu().numpy() for k, v in out.items()}
+        device step): one output dict, or one a replica, joined in order;
+        the padding is trimmed."""
+        if isinstance(out, dict):
+            return {k: v[:real_b].cpu().numpy() for k, v in out.items()}
+        return {k: np.concatenate([o[k].cpu().numpy() for o in out])[:real_b]
+                for k in out[0]}

@@ -19,6 +19,8 @@ Layout: the port's conv weights are OIHW, so the output channel is axis
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 _EPS = 1e-12
@@ -41,7 +43,8 @@ def fake_quant_weight(w: torch.Tensor) -> torch.Tensor:
     return _ste(wf, _grid(wf, amax)).to(w.dtype)
 
 
-def fake_quant_act(x: torch.Tensor) -> torch.Tensor:
-    """Per-tensor int8 fake-quant of an activation, dynamic absmax scale."""
+def fake_quant_act(x: torch.Tensor, amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-tensor int8 fake-quant of an activation, dynamic absmax scale
+    (`amax`: the absmax of the whole tensor when x is a shard of it)."""
     xf = x.float()
-    return _ste(xf, _grid(xf, xf.abs().amax())).to(x.dtype)
+    return _ste(xf, _grid(xf, xf.abs().amax() if amax is None else amax)).to(x.dtype)

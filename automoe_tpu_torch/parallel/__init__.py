@@ -1,8 +1,8 @@
 """Process groups and the whole-block parallel modes of the port (port of
 automoe_tpu/parallel/): the mesh of processes (mesh.py), BatchNorm over
-the data group (batchnorm.py), pipeline parallelism (pp.py) and expert
-parallelism (ep.py). Tensor and spatial partitioning (JAX tp.py, sp.py)
-are not ported yet."""
+the data group (batchnorm.py), pipeline parallelism (pp.py), expert
+parallelism (ep.py), tensor parallelism (tp.py) and spatial
+partitioning with hand-written halos (sp.py)."""
 from automoe_tpu_torch.parallel.mesh import (  # noqa: F401
     DATA_AXIS,
     MODEL_AXIS,
@@ -17,4 +17,8 @@ from automoe_tpu_torch.parallel.mesh import (  # noqa: F401
 from automoe_tpu_torch.parallel.pp import (  # noqa: F401
     pipeline_apply,
     stage_param_sharding,
+)
+from automoe_tpu_torch.parallel.tp import (  # noqa: F401
+    tp_param_names,
+    tp_shard_state,
 )

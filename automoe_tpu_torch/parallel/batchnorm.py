@@ -1,4 +1,5 @@
-"""BatchNorm over the data group's global batch.
+"""BatchNorm over the data group's global batch (or over the world for a
+height-split map: parallel/sp.py).
 
 The JAX package's data mesh computes BatchNorm statistics over the global
 batch: GSPMD turns the mean over a sharded batch axis into an all-reduce.
@@ -8,9 +9,9 @@ own: `convert_batchnorm` swaps every BatchNorm1d/2d of a model for a
 subclass whose train-mode forward is `_CrossRankNorm`:
 
   forward   each rank's (count, mean, M2) per channel, all-gathered over
-            the data group and combined exactly (Chan's parallel variance),
+            the group and combined exactly (Chan's parallel variance),
             then y = (x - mean) / sqrt(var + eps) * weight + bias;
-  backward  Σ dy and Σ dy·x̂ all-reduced over the data group, so the input
+  backward  Σ dy and Σ dy·x̂ all-reduced over the group, so the input
             gradient is the transpose of the global normalisation; the
             affine gradients stay local (the step sums them over ranks).
 
@@ -31,14 +32,14 @@ from automoe_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 
 class _CrossRankNorm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, weight, bias, eps: float, mesh: Mesh):
+    def forward(ctx, x, weight, bias, eps: float, mesh: Mesh, group: str):
         dims = [0] + list(range(2, x.ndim))
         xf = x.float()
         n_local = xf.numel() // xf.shape[1]
         var_l, mean_l = torch.var_mean(xf, dim=dims, unbiased=False)
         local = torch.cat([torch.full_like(mean_l[:1], float(n_local)), mean_l,
                            var_l * n_local])
-        allst = mesh.all_gather(local, "data")  # [D, 1 + 2C]
+        allst = mesh.all_gather(local, group)  # [D, 1 + 2C]
         C = mean_l.numel()
         counts, means, m2s = allst[:, :1], allst[:, 1:C + 1], allst[:, C + 1:]
         n = counts.sum()
@@ -51,7 +52,7 @@ class _CrossRankNorm(torch.autograd.Function):
         if weight is not None:
             y = y * weight.float().view(shape) + bias.float().view(shape)
         ctx.save_for_backward(xhat, invstd, weight)
-        ctx.mesh, ctx.n, ctx.shape, ctx.dims = mesh, n, shape, dims
+        ctx.mesh, ctx.group, ctx.n, ctx.shape, ctx.dims = mesh, group, n, shape, dims
         ctx.mark_non_differentiable(mean, var, n)
         return y.to(x.dtype), mean, var, n
 
@@ -62,7 +63,7 @@ class _CrossRankNorm(torch.autograd.Function):
         dyf = dy.float()
         sum_dy = dyf.sum(dims)
         sum_dy_xhat = (dyf * xhat).sum(dims)
-        both = ctx.mesh.all_reduce(torch.cat([sum_dy, sum_dy_xhat]), "data")
+        both = ctx.mesh.all_reduce(torch.cat([sum_dy, sum_dy_xhat]), ctx.group)
         C = sum_dy.numel()
         g_sum, g_sum_xhat = both[:C] / ctx.n, both[C:] / ctx.n
         scale = invstd if weight is None else invstd * weight.float()
@@ -70,21 +71,23 @@ class _CrossRankNorm(torch.autograd.Function):
         dw = db = None
         if weight is not None:
             dw, db = sum_dy_xhat.to(weight.dtype), sum_dy.to(weight.dtype)
-        return dx.to(dy.dtype), dw, db, None, None
+        return dx.to(dy.dtype), dw, db, None, None, None
 
 
 class _CrossRankMixin:
-    """forward of a BatchNorm whose train-mode statistics span the data
-    group of `self._mesh`."""
+    """forward of a BatchNorm whose train-mode statistics span the group
+    `self._group` of `self._mesh` ("data" unless the caller sets it:
+    spatial partitioning normalises a height-split map over "world")."""
 
     _mesh: Mesh
+    _group: str = DATA_AXIS
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self._mesh.shape[DATA_AXIS] == 1:
+        if not self.training or self._mesh.group_size(self._group) == 1:
             return super().forward(x)
         self._check_input_dim(x)
         y, mean, var, n = _CrossRankNorm.apply(x, self.weight, self.bias, self.eps,
-                                               self._mesh)
+                                               self._mesh, self._group)
         if self.track_running_stats:
             with torch.no_grad():
                 self.num_batches_tracked.add_(1)

@@ -201,6 +201,22 @@ class Mesh:
             r.wait()
         return recv.to(x.device)
 
+    def all_to_all(self, x: torch.Tensor, send_counts: Sequence[int],
+                   recv_counts: Sequence[int], group: str = "data") -> torch.Tensor:
+        """x's rows split in `group` order by `send_counts` (the first
+        send_counts[0] rows to the group's first rank, ...); returns the
+        rows every rank sent here, concatenated in group order
+        (sum(recv_counts) rows)."""
+        if self.group_size(group) == 1:
+            return x
+        send = x.detach().contiguous()
+        if self.staging and send.is_cuda:
+            send = send.to("cpu")
+        recv = send.new_empty((sum(recv_counts), *send.shape[1:]))
+        dist.all_to_all_single(recv, send, list(recv_counts), list(send_counts),
+                               group=self._groups[group])
+        return recv.to(x.device)
+
     def barrier(self) -> None:
         if self.size > 1:
             if self.backend == "nccl":

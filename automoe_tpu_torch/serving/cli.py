@@ -10,6 +10,7 @@ port (serving/server.py; `serving.Client` is the reference client).
                                                    # its EMA weights (--ema-decay runs)
   automoe-serve-torch --quantize                   # int8 trunks, random init
   automoe-serve-torch --device cpu                 # no GPU
+  automoe-serve-torch --data-parallel --quantize   # a replica on every visible card
 
 Runs on `cuda` unless --device names another device; a bundle runs on
 the device it was traced on.
@@ -49,19 +50,30 @@ def build_engine(args):
         if args.ema:
             raise SystemExit("--ema applies at export time for bundles: pass prefer_ema "
                              "when building the bundle's engine instead")
+        if args.data_parallel:
+            raise SystemExit("--data-parallel needs a live model (the bundle's exported "
+                             "programs run on the one device they were traced on) — use "
+                             "--checkpoint/--model-config")
         from automoe_tpu_torch.serving.export import ArtifactEngine
 
         return ArtifactEngine(args.bundle)
 
     import torch
 
+    kw = {"device": args.device}
+    if args.data_parallel:  # one replica a visible card
+        from automoe_tpu_torch.utils import resolve_device
+
+        dev = resolve_device(args.device)
+        kw = {"devices": ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                          if dev.type == "cuda" else [dev])}
     return load_engine(
         args.model_config, args.checkpoint, args.ema,
         camera_hw=tuple(args.camera_hw),
         model_hw=tuple(args.model_hw),
         dtype=torch.float32 if args.fp32 else torch.bfloat16,
         quantize=args.quantize,
-        device=args.device,
+        **kw,
     )
 
 
@@ -95,10 +107,11 @@ def main(argv: Optional[Sequence[str]] = None, block: bool = True):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' to run without a GPU); "
                         "ignored with --bundle")
-    p.add_argument("--data-parallel", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--data-parallel", action="store_true",
+                   help="one replica of the model on every visible card, each request "
+                        "batch split over them (repeat-padded to a multiple of the cards): "
+                        "InferenceEngine(devices=...)")
     args = p.parse_args(argv)
-    if args.data_parallel:  # the JAX server's mesh-sharded engine
-        p.error("--data-parallel is not ported yet")
 
     from automoe_tpu_torch.serving.server import BatchingServer, serve_tcp
 

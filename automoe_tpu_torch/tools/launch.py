@@ -11,8 +11,9 @@ SKIP_DRIVABLE, SKIP_NUSCENES, SKIP_POLICY, SKIP_GATING.
 
 `--device` (default cuda) is forwarded to every stage; without a GPU and
 without `--device cpu` the launcher raises before the first stage.
-`--no-mesh` and the mesh flags (`--model-axis`, `--multihost`,
-`--coordinator`, `--num-processes`, `--process-id`) are forwarded to
+`--no-mesh` and the mesh flags (`--model-axis`, `--spatial`,
+`--tp-min-dim`, `--multihost`, `--coordinator`, `--num-processes`,
+`--process-id`) are forwarded to
 every stage, which applies the trainer's meaning and refusals. The summary (each stage's
 status and seconds) is printed and written to
 <log-dir>/<pipeline>_<run-name>.json; JAX's launcher only makes the
@@ -51,6 +52,10 @@ def _stage_args(stage: List[str], args) -> List[str]:
         out += ["--model-axis", str(args.model_axis)]
     if args.multihost:
         out += ["--multihost"]
+    if args.spatial:
+        out += ["--spatial"]
+    if args.tp_min_dim:
+        out += ["--tp-min-dim", str(args.tp_min_dim)]
     for flag in ("coordinator", "num_processes", "process_id"):
         if getattr(args, flag) is not None:
             out += ["--" + flag.replace("_", "-"), str(getattr(args, flag))]
@@ -125,6 +130,8 @@ def main(argv=None):
     p.add_argument("--multihost", action="store_true",
                    help="forwarded, with --coordinator, --num-processes and --process-id: "
                         "this launcher is one rank of each stage's world")
+    p.add_argument("--spatial", action="store_true", help="forwarded to every stage")
+    p.add_argument("--tp-min-dim", type=int, default=0, help="forwarded to every stage")
     p.add_argument("--coordinator", default=None)
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)

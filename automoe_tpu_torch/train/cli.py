@@ -25,11 +25,14 @@ CLI's too: `--multihost --coordinator host:port --num-processes N
 share a card, NCCL when each has its own), `--model-axis M` splits the
 world data x M, `--no-mesh` runs one process with no group; data-parallel
 ranks read their own sampler shard of --batch-size rows each; policy's
-`--pp-microbatches` pipelines the deep trunk over the model axis and
-gating's `--parallelism ep` runs one expert a rank, with the JAX CLI's
-refusals. `--spatial`, `--tp-min-dim` and, on more than one rank,
-gating's `--cache-expert-features` and `--device-resident` exit with "not
-ported yet"; none is silently ignored. `preset <name-or-path> [overrides...]` expands one of
+`--pp-microbatches` pipelines the deep trunk over the model axis,
+gating's `--parallelism ep` runs one expert a rank, `--tp-min-dim N`
+splits every weight whose output dim is >= N over the model axis
+(parallel/tp.py) and `--spatial` splits the ResNet trunks' maps by height
+over it (parallel/sp.py), with the JAX CLI's refusals. On several ranks
+gating's `--cache-expert-features` shares its pass over the data ranks
+(rank 0 writes the file) and `--device-resident` stages each data rank's
+shard. `preset <name-or-path> [overrides...]` expands one of
 the JSON run configs in automoe_tpu_torch/configs/presets/ (the JAX
 package's, byte for byte; `preset --list` names them) into its
 subcommand's flags, the trailing overrides last. As in the JAX CLI,
@@ -49,25 +52,8 @@ from typing import Dict
 from automoe_tpu_torch.train import workloads as W
 from automoe_tpu_torch.train.loop import TrainConfig, Trainer
 
-#: the JAX CLI's flags this port does not have yet
-_NOT_PORTED_FLAGS = ("--spatial", "--tp-min-dim")
-
 #: the reference trainers' schedule cadences (train/state.py::make_optimizer)
 _DEFAULT_SCHEDULE = {"policy": "constant", "gating": "cosine_per_epoch"}
-
-
-class _NotPorted(argparse.Action):
-    def __init__(self, option_strings, dest, **kw):
-        super().__init__(option_strings, dest, nargs="?", default=argparse.SUPPRESS,
-                         help=argparse.SUPPRESS)
-
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported yet")
-
-
-def _reject(p: argparse.ArgumentParser, flags) -> None:
-    for flag in flags:
-        p.add_argument(flag, action=_NotPorted)
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -166,7 +152,19 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--no-mesh", action="store_true",
                    help="one process, no process group")
     p.add_argument("--model-axis", type=int, default=1,
-                   help="mesh 'model'-axis size (the world's processes split data x model)")
+                   help="mesh 'model'-axis size (the world's processes split data x model); "
+                        "required > 1 by --spatial and --tp-min-dim")
+    p.add_argument("--spatial", action="store_true",
+                   help="spatial partitioning: split the ResNet trunks' image HEIGHT over "
+                        "the 'model' axis with hand-written halo exchanges "
+                        "(parallel/sp.py): each rank keeps about 1/M of the trunk's "
+                        "activations, its peak falls less (tools/sp_memory.py measures "
+                        "it); needs --model-axis > 1 dividing the image height")
+    p.add_argument("--tp-min-dim", type=int, default=0,
+                   help="tensor parallelism: split weights whose output dim is >= this "
+                        "(and divisible by the 'model' axis) over 'model', column-parallel "
+                        "(parallel/tp.py); 0 = off; needs --model-axis > 1; exclusive with "
+                        "--spatial")
     p.add_argument("--multihost", action="store_true",
                    help="join a world of processes (with --coordinator, --num-processes, "
                         "--process-id) before anything else")
@@ -174,7 +172,6 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="host:port of rank 0's rendezvous, with --multihost")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
-    _reject(p, _NOT_PORTED_FLAGS)
 
 
 def _train_cfg(args, pipeline: str = "") -> TrainConfig:
@@ -188,7 +185,8 @@ def _train_cfg(args, pipeline: str = "") -> TrainConfig:
         max_inflight=args.max_inflight, steps_per_call=args.steps_per_call,
         profile_dir=args.profile_dir, grad_accum=args.grad_accum,
         ema_decay=args.ema_decay, debug_nans=args.debug_nans, device=args.device,
-        pp_microbatches=getattr(args, "pp_microbatches", 0))
+        pp_microbatches=getattr(args, "pp_microbatches", 0), spatial=args.spatial,
+        tp_min_dim=args.tp_min_dim)
 
 
 def _dtype(args):
@@ -222,18 +220,29 @@ def _world_guards(args) -> None:
     if args.no_mesh and _world_size(args) > 1:
         raise SystemExit("--no-mesh runs one process with no process group; drop "
                          "--multihost")
-    if _world_size(args) > 1 and args.cmd == "gating":
-        for flag in ("cache_expert_features", "device_resident"):
-            if getattr(args, flag):
-                raise SystemExit(f"--{flag.replace('_', '-')} on more than one rank is not "
-                                 "ported yet")
+    if args.cmd == "gating":
+        _gating_guards(args)
 
 
 def _mesh(args, *, data: int = -1, model: int = 0):
     """The run's mesh over the world (None with --no-mesh), checked with
-    the JAX package's words."""
+    the JAX package's words (its refusals of --spatial and --tp-min-dim
+    without a 'model' axis, made where the JAX CLI makes them: not for
+    expert parallelism's own mesh)."""
     if args.no_mesh:
+        if args.spatial:
+            raise SystemExit("--spatial requires a device mesh")
+        if args.tp_min_dim > 0:
+            raise SystemExit("--tp-min-dim requires a device mesh")
         return None
+    if not model:
+        if args.spatial and args.model_axis < 2:
+            raise SystemExit("--spatial needs --model-axis > 1")
+        if args.tp_min_dim > 0 and args.model_axis < 2:
+            raise SystemExit("--tp-min-dim needs --model-axis > 1")
+        if args.spatial and args.tp_min_dim > 0:
+            raise SystemExit("--spatial and --tp-min-dim are exclusive (both consume the "
+                             "'model' mesh axis)")
     from automoe_tpu_torch.parallel import MeshSpec, make_mesh
 
     try:  # the Trainer resolves the device (and raises without a GPU)
@@ -410,6 +419,11 @@ def _gating_guards(args) -> None:
         if args.parallelism == "ep":
             raise SystemExit("--cache-expert-features removes the expert compute that "
                              "--parallelism ep distributes; pick one")
+        if args.spatial:
+            raise SystemExit("--cache-expert-features is exclusive with --spatial (spatial "
+                             "sharding targets the expert trunks' image compute, which the "
+                             "cache skips; the cached step's remaining image consumer — the "
+                             "policy backbone — is below SP's useful size)")
     if args.device_resident:
         if not args.cache_expert_features:
             raise SystemExit("--device-resident requires --cache-expert-features (the "
@@ -420,8 +434,15 @@ def _gating_guards(args) -> None:
             raise SystemExit("--device-resident doesn't compose with --grad-accum (the "
                              "resident loader pre-groups for steps_per_call; raise "
                              "--batch-size instead)")
-    if args.parallelism == "ep" and args.no_mesh:
-        raise SystemExit("--parallelism ep requires a device mesh")
+    if args.parallelism == "ep":
+        if args.no_mesh:
+            raise SystemExit("--parallelism ep requires a device mesh")
+        if args.spatial:
+            raise SystemExit("--spatial is exclusive with --parallelism ep (both consume the "
+                             "'model' mesh axis)")
+        if args.tp_min_dim > 0:
+            raise SystemExit("--tp-min-dim is exclusive with --parallelism ep (both consume "
+                             "the 'model' mesh axis)")
 
 
 def cmd_gating(args):
@@ -435,7 +456,6 @@ def cmd_gating(args):
         "qat": "experts are frozen pre-trained weights here; QAT belongs to the expert "
                "trainers whose checkpoints feed this stage",
         "augment": "expert pipelines only"})
-    _gating_guards(args)
     loss_cfg = json.loads(args.loss_config or "{}")
     if args.parallelism == "ep":
         from automoe_tpu_torch.parallel.ep import ep_gating_workload
@@ -461,7 +481,8 @@ def cmd_gating(args):
     # (or, with --unfreeze-experts, their trained weights) back on every
     # relaunch; a relaunch that found nothing to restore still grafts
     if args.expert_ckpts and not trainer.resumed:
-        load_expert_checkpoints(trainer.model, cfg, args.expert_ckpts.split(","))
+        with trainer.unsharded():  # tensor parallelism's slices whole, by name
+            load_expert_checkpoints(trainer.model, cfg, args.expert_ckpts.split(","))
         # the JAX CLI leaves its EMA at the random init here; the port's
         # starts at the grafted weights, so serve --ema gets the experts
         trainer.reset_ema()
@@ -470,21 +491,29 @@ def cmd_gating(args):
         # must see the final frozen weights); later steps skip the trunks
         from automoe_tpu_torch.train.feature_cache import attach_pooled_features
 
+        # several ranks share the pass over their data ranks; rank 0 writes
         root = args.packed_root or args.data_root
         attach_pooled_features(trainer.model, train, val, batch_size=args.batch_size,
                                cache_dir=args.feature_cache_dir,
-                               cache_tags=[f"{root}:train", f"{root}:val"])
+                               cache_tags=[f"{root}:train", f"{root}:val"], mesh=trainer.mesh,
+                               state_dict=trainer.whole_state_dict())
     if args.device_resident:
         # the cached epoch (frames included: the policy head trains its own
         # backbone through them) staged on the card once, fed as groups of
         # --steps-per-call batches; rebind rebuilds the schedule for the
         # trimmed length. Validation stays on the host loader, whose padded
         # tail keeps every val sample.
+        # Several ranks: data rank d stages only its shard (the sharded
+        # sampler's slice rule), and each epoch's permutation is exchanged
+        # over the data group (data/device_resident.py).
         from automoe_tpu_torch.data.device_resident import DeviceEpochLoader
 
+        m = trainer.mesh
+        indices = (range(m.data_index, len(train.dataset), m.shape["data"])
+                   if m is not None and m.shape["data"] > 1 else None)
         trainer.rebind_train_loader(DeviceEpochLoader.from_dataset(
             train.dataset, batch_size=args.batch_size, group_size=max(1, args.steps_per_call),
-            seed=args.seed, device=trainer.device))
+            seed=args.seed, device=trainer.device, mesh=m, indices=indices))
     return trainer.fit(_args_dump(args))
 
 

@@ -42,11 +42,17 @@ Trainer runs under its device mesh: every rank builds the model from the
 same seed (a pipeline keeps its stage's blocks, parallel/pp.py), the
 workload's BatchNorms normalise over the data group
 (parallel/batchnorm.py) unless it says otherwise (expert parallelism),
+`tp_min_dim` splits the wide weights over the 'model' group
+(parallel/tp.py) and `spatial` the ResNet trunks' maps by height
+(parallel/sp.py), with the JAX Trainer's refusals (`_mode_guards`),
 the optimizer reduces the gradients over the ranks, each step's metrics
 are averaged over them, validation sums each metric's sums and counts
 over them exactly, and only rank 0 logs, prints and writes checkpoints
-(in the single-process layout). A mesh of one rank runs the
-single-process path unchanged.
+(in the single-process layout: pipeline stages and tensor-parallel slices
+gathered whole). A mesh of one rank runs the single-process path
+unchanged. A device-resident loader in `index_mode` yields base indices,
+and its groups go through the indexed K-step call
+(train/step.py::make_indexed_scan_train_step).
 
 Resume as in the JAX Trainer: resume='model' loads weights and BatchNorm
 statistics and starts at epoch 0; resume='full' also loads the optimizer
@@ -76,6 +82,7 @@ from automoe_tpu_torch.train.state import make_optimizer
 from automoe_tpu_torch.train.step import (
     make_eval_step,
     make_grad_accum_train_step,
+    make_indexed_scan_train_step,
     make_scan_train_step,
     make_train_step,
 )
@@ -120,6 +127,12 @@ class TrainConfig:
     # 'model' group in M microbatches (workloads.policy_workload(
     # pipeline_mesh=, pipeline_microbatches=M))
     pp_microbatches: int = 0
+    # N>0: parameters whose output dim is >= N and divides by the mesh's
+    # 'model' axis are split over it (parallel/tp.py)
+    tp_min_dim: int = 0
+    # the ResNet trunks' maps split by height over the mesh's 'model' axis
+    # (parallel/sp.py)
+    spatial: bool = False
 
 
 def _optimizer_steps_per_epoch(n_batches: int, grad_accum: int) -> int:
@@ -127,6 +140,33 @@ def _optimizer_steps_per_epoch(n_batches: int, grad_accum: int) -> int:
     make one step and the n % K tail batches one step each."""
     n = max(1, n_batches)
     return max(1, n // grad_accum + n % grad_accum) if grad_accum > 1 else n
+
+
+def _mode_guards(config: TrainConfig, mesh) -> None:
+    """The JAX Trainer's refusals for the modes that use the mesh's
+    'model' axis, in its words."""
+    shape = None if mesh is None else dict(mesh.shape)
+    no_model = mesh is None or mesh.shape["model"] < 2
+    if config.spatial:
+        if no_model:
+            raise ValueError("spatial partitioning needs a mesh with a 'model' axis > 1 "
+                             f"(got {shape})")
+        if config.steps_per_call > 1:
+            raise ValueError("spatial partitioning and steps_per_call > 1 are exclusive "
+                             "(stacked [K,B,...] batches keep P('data'))")
+        if config.tp_min_dim > 0:
+            raise ValueError("spatial and tensor parallelism are exclusive (both consume "
+                             "the 'model' mesh axis)")
+    if config.tp_min_dim > 0 and no_model:
+        raise ValueError("tensor parallelism (tp_min_dim > 0) needs a mesh with a 'model' "
+                         f"axis > 1 (got {shape})")
+    if config.pp_microbatches > 0:
+        if no_model:
+            raise ValueError("pipeline parallelism (pp_microbatches > 0) needs a mesh with a "
+                             f"'model' axis > 1 (got {shape})")
+        if config.tp_min_dim > 0 or config.spatial:
+            raise ValueError("pp_microbatches is exclusive with tp_min_dim/spatial (all "
+                             "consume the 'model' mesh axis)")
 
 
 class _NoLog:
@@ -145,10 +185,7 @@ class Trainer:
         if config.grad_accum > 1 and config.steps_per_call > 1:
             raise ValueError("grad_accum > 1 and steps_per_call > 1 are exclusive "
                              "(both group loader batches into one call)")
-        if config.pp_microbatches > 0 and (mesh is None or mesh.shape["model"] < 2):
-            raise ValueError("pipeline parallelism (pp_microbatches > 0) needs a mesh with a "
-                             "'model' axis > 1 (got "
-                             f"{None if mesh is None else dict(mesh.shape)})")
+        _mode_guards(config, mesh)
         self.wl = workload
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -158,11 +195,22 @@ class Trainer:
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.main = self.mesh is None or self.mesh.is_main
         self.model = workload.init_model(config.seed, self.device)
-        stage_names = workload.stage_names(self.model)
+        # name -> the dim it is split along over the model group
+        stage_names = {n: 0 for n in workload.stage_names(self.model)}
+        self.tp_dims: Dict[str, int] = {}
         if self.mesh is not None and workload.cross_rank_bn:
             from automoe_tpu_torch.parallel.batchnorm import convert_batchnorm
 
             convert_batchnorm(self.model, self.mesh)
+        if config.tp_min_dim > 0:
+            from automoe_tpu_torch.parallel.tp import tp_shard_state
+
+            self.tp_dims = tp_shard_state(self.model, self.mesh, min_dim=config.tp_min_dim)
+            stage_names.update(self.tp_dims)
+        if config.spatial:
+            from automoe_tpu_torch.parallel.sp import spatial_model
+
+            spatial_model(self.model, self.mesh)
         bpe = _optimizer_steps_per_epoch(len(train_loader), config.grad_accum)
         self.optimizer = make_optimizer(
             self.model.named_parameters(), learning_rate=config.learning_rate,
@@ -178,6 +226,9 @@ class Trainer:
         self.accum_step = (make_grad_accum_train_step(workload.loss_fn)
                            if config.grad_accum > 1 else None)
         self.eval_step = make_eval_step(workload.loss_fn)
+        self.indexed_step = (make_indexed_scan_train_step(workload.loss_fn,
+                                                          config.steps_per_call)
+                             if config.steps_per_call > 1 else None)
         self.layout = (None if self.mesh is None
                        else StageLayout(self.mesh, stage_names))
         self.ckpt = CheckpointManager(config.ckpt_root, workload.name, config.run_name,
@@ -210,6 +261,19 @@ class Trainer:
         load_state_into(self.model, sd if self.layout is None else self.layout.cut(sd),
                         str(path))
 
+    def unsharded(self):
+        """Tensor parallelism's slices whole for the block (a collective:
+        every rank enters it), e.g. to graft weights into them by name."""
+        from automoe_tpu_torch.parallel.tp import unsharded
+
+        return unsharded(self.model, self.mesh, self.tp_dims)
+
+    def whole_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state dict in the single-process layout (every rank
+        calls it: under a model split, a collective)."""
+        sd = self.model.state_dict()
+        return sd if self.layout is None else self.layout.gather(sd)
+
     def reset_ema(self) -> None:
         """Start the EMA again at the parameters: after weights were
         grafted into fresh state (--init-from, --expert-ckpts)."""
@@ -231,7 +295,12 @@ class Trainer:
         return {k: v for k, v in batch.items() if not isinstance(v, list) and k != "_real_count"}
 
     def _device_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        return self._to_device(self._arrays(batch))
+        arrays = self._arrays(batch)
+        if self.cfg.spatial:
+            from automoe_tpu_torch.parallel.sp import check_spatial_batch
+
+            check_spatial_batch(arrays, self.mesh)
+        return self._to_device(arrays)
 
     def _device_group(self, group: List[Dict]) -> Dict[str, torch.Tensor]:
         """K host batches stacked [K, B, ...] into one buffer per key (over
@@ -311,6 +380,13 @@ class Trainer:
         k, step_fn, steps = self._mode()
         # a loader that yields K-batch groups already stacked (and placed)
         pre_grouped = k > 1 and getattr(self.train_loader, "group_size", 1) == k
+        indexed = pre_grouped and getattr(self.train_loader, "index_mode", False)
+        if indexed:  # the loader yields {"__group_index__": g0}; the step slices
+            loader = self.train_loader
+
+            def step_fn(model, optimizer, marker, key):
+                return self.indexed_step(model, optimizer, loader.epoch_batches,
+                                         int(marker["__group_index__"]), key)
         self._loss_sum, self._loss_n = 0.0, 0
         t0 = time.time()
         anomaly = (torch.autograd.detect_anomaly(check_nan=True) if self.cfg.debug_nans
@@ -323,7 +399,8 @@ class Trainer:
                     continue
                 last_i = i
                 if pre_grouped:
-                    self._dispatch(step_fn, self._device_batch(batch), steps)
+                    self._dispatch(step_fn, batch if indexed else self._device_batch(batch),
+                                   steps)
                     self._maybe_save_step(epoch, consumed0 + (i + 1) * k)
                     continue
                 group.append(batch)

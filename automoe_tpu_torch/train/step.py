@@ -1,6 +1,7 @@
 """Single-device train and eval steps (port of automoe_tpu/train/step.py:
 the single step `_train_body`, `make_scan_train_step`,
-`make_grad_accum_train_step` and `make_eval_step`).
+`make_indexed_scan_train_step`, `make_grad_accum_train_step` and
+`make_eval_step`).
 
 A step's randomness comes from a key, a tuple of ints: the loop passes
 (seed + 1, optimizer steps taken), as the JAX step folds its step count
@@ -73,6 +74,28 @@ def make_scan_train_step(loss_fn: LossFn):
         return {n: torch.stack([o[n] for o in outs]) for n in outs[0]}
 
     return scan_step
+
+
+def make_indexed_scan_train_step(loss_fn: LossFn, k: int):
+    """`make_scan_train_step` that takes its K batches out of a resident
+    epoch itself (the JAX package's make_indexed_scan_train_step): the
+    caller passes the loader's flat [S, B, ...] epoch and a base index g0,
+    and step i trains on batch g0 + i with key (*key[:-1], key[-1] + i),
+    so the result is the grouped call's on the same batches. No [K, B, ...]
+    copy of the group is made."""
+    step = make_train_step(loss_fn)
+
+    def indexed_step(model: nn.Module, optimizer: Optimizer,
+                     epoch_batches: Dict[str, torch.Tensor], g0: int,
+                     key: Optional[Key] = None) -> Dict[str, torch.Tensor]:
+        outs: List[Dict[str, torch.Tensor]] = []
+        for i in range(k):
+            ki = None if key is None else (*key[:-1], key[-1] + i)
+            outs.append(step(model, optimizer, {n: v[g0 + i] for n, v in epoch_batches.items()},
+                             ki))
+        return {n: torch.stack([o[n] for o in outs]) for n in outs[0]}
+
+    return indexed_step
 
 
 def make_grad_accum_train_step(loss_fn: LossFn):

@@ -222,14 +222,37 @@ Phases, each of which must pass (none is caught):
      batch 8, 1 epoch) on 4 ranks against dense gating in one process,
      then `automoe-serve-torch --checkpoint <its best> --quantize` answers
      4 TCP requests, K3 once per server batch.
+ 22. the split-tensor modes and the multi-rank pieces (parallel/tp.py,
+     parallel/sp.py, the shared feature cache, the resident epoch over
+     data ranks, serving replicas), on 21's caches, TF32 off, each run in
+     a process of its own reporting its kernel launches and peak device
+     memory: (a) `bdd --task detection` (256x256, box cap 48, batch 32,
+     1 epoch of 64 frames) with --tp-min-dim 256 --model-axis 2 on 2
+     ranks (gloo) against --no-mesh, K1 once per step on each rank, each
+     rank's step time and peak memory; with the CLI's AdamW the
+     parameters held by 21's rule and BatchNorm's running statistics
+     reported (they follow AdamW's noise-moved weights), and again with
+     SGD, every tensor held at rtol 1e-4 / atol 1e-5; (b) the same with
+     --spatial --model-axis 2 (hand-written halos); (c) `gating
+     --cache-expert-features --device-resident --steps-per-call 2`
+     (default config, 256x256, 8 rows a rank, 1 epoch) on 2 ranks
+     against one process of 16 rows over the same flat epoch, dropout
+     off in both: the runs held by 21's rule, the caches' fingerprints
+     equal and their arrays within rtol 1e-5, each epoch's exchange
+     timed; (d) `automoe-serve-torch --data-parallel --quantize` (one
+     replica: this card) answers 4 TCP requests, K3 once per server
+     batch, its engine equal to the plain one.
 Prints the card's name and power limit, one JSON line of kernel results,
 and, last, {"ok": true, "device": {...}}. Exits non-zero without a CUDA
 device or outside a checkout of the repository. It needs one card.
 
     python3 chip_smoke.py --cards
 
-runs only phase 21's comparisons with one rank a card (NCCL), on a host of
-4 cards (`phase_parallel_cards`).
+runs only phase 21's and 22's comparisons with one rank a card (NCCL), on a
+host of 4 cards (`phase_parallel_cards`, `phase_split_cards`: tensor
+parallel at data 2 x model 2 and spatial at model 2 x data 2 against one
+process, and --data-parallel serving over 4 replicas with a 3-frame batch
+padded to 4, against one card).
 """
 from __future__ import annotations
 
@@ -1887,17 +1910,49 @@ def phase_launch_supervise(tmp: Path, pre: Path):
     return out
 
 
-#: a rank of a phase-21 run: automoe-train-torch with its argv (JSON) and
+#: a rank of a phase-21/22 run: automoe-train-torch with its argv (JSON) and
 #: the mesh flags, TF32 off, a step's metrics logged every step; prints its
-#: result and its kernel launches (counted from 0) as JSON, last
+#: result, its kernel launches (counted from 0), its peak device memory and
+#: the seconds of each resident epoch's exchange as JSON, last. In its
+#: environment SMOKE_NO_DROPOUT=1 turns dropout off (a data rank draws its
+#: masks from its data index, so only a dropout-free run of several ranks
+#: equals one process) and SMOKE_FLAT_SHARDS=n makes one process's
+#: resident loader stage the flat epoch n data ranks assemble;
+#: SMOKE_OPTIMIZER=sgd trains with SGD in place of the CLI's AdamW.
 RANK_CODE = r"""
-import dataclasses, json, sys
+import dataclasses, json, os, sys, time
 import torch
 torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+from automoe_tpu_torch.data import device_resident as dr
 from automoe_tpu_torch.ops import auction_kernel as ak, stem
 from automoe_tpu_torch.train import cli
+if os.environ.get("SMOKE_NO_DROPOUT") == "1":
+    torch.nn.Dropout.forward = lambda self, x: x
+shards = int(os.environ.get("SMOKE_FLAT_SHARDS", "0"))
+from_dataset = dr.DeviceEpochLoader.from_dataset.__func__
+def flat(cls, dataset, *, indices=None, batch_size, group_size=1, **kw):
+    per = batch_size // shards * max(1, group_size)
+    n = len(range(shards - 1, len(dataset), shards)) // per * per
+    idx = [i for d in range(shards) for i in list(range(d, len(dataset), shards))[:n]]
+    return from_dataset(cls, dataset, indices=idx, batch_size=batch_size,
+                        group_size=group_size, **kw)
+if shards:
+    dr.DeviceEpochLoader.from_dataset = classmethod(flat)
+rows, exchange_s, cuda = dr.DeviceEpochLoader._rows, [], torch.cuda.is_available()
+def timed_rows(self, perm):
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = rows(self, perm)
+    if cuda:
+        torch.cuda.synchronize()
+    exchange_s.append(time.perf_counter() - t0)
+    return out
+dr.DeviceEpochLoader._rows = timed_rows
 base = cli._train_cfg
-cli._train_cfg = lambda args, pipeline="": dataclasses.replace(base(args, pipeline), log_every=1)
+opt = os.environ.get("SMOKE_OPTIMIZER")  # e.g. sgd: the CLI always trains with AdamW
+cli._train_cfg = lambda args, pipeline="": dataclasses.replace(
+    base(args, pipeline), log_every=1, **({"optimizer": opt} if opt else {}))
 mesh_of, seen = cli._mesh, {}
 def _mesh(args, **kw):
     mesh = mesh_of(args, **kw)
@@ -1909,7 +1964,9 @@ ak.reset_launch_counts()
 stem.reset_launch_counts()
 res = cli.main(json.loads(sys.argv[1]))
 print(json.dumps({"result": res, **seen, "launches": {"auction_solve": ak.LAUNCHES["auction_solve"],
-                                                      **stem.LAUNCHES}}))
+                                                      **stem.LAUNCHES},
+                  "peak_mib": torch.cuda.max_memory_allocated() / 2**20 if cuda else None,
+                  "resident_exchange_s": exchange_s}))
 """
 RANK_TIMEOUT_S = 600
 
@@ -1922,19 +1979,21 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def cli_ranks(argv, world: int) -> list:
+def cli_ranks(argv, world: int, env=None, mesh: bool = True) -> list:
     """`automoe-train-torch argv` as `world` processes of one world on this
     card (--multihost on a free localhost port), each with its own timeout:
-    a rank that fails or hangs fails the phase. Each rank's JSON line."""
+    a rank that fails or hangs fails the phase. Each rank's JSON line.
+    env: added to each process's environment (RANK_CODE's switches);
+    mesh=False runs one process with argv as given."""
     import os
 
     coord = f"127.0.0.1:{free_port()}"
     root = Path(__file__).resolve().parent
-    env = {**os.environ, "PYTHONPATH": str(root)}
+    env = {**os.environ, "PYTHONPATH": str(root), **(env or {})}
     procs = [subprocess.Popen(
         [sys.executable, "-c", RANK_CODE, json.dumps(
-            argv + ["--multihost", "--coordinator", coord, "--num-processes", str(world),
-                    "--process-id", str(r)])],
+            argv + (["--multihost", "--coordinator", coord, "--num-processes", str(world),
+                     "--process-id", str(r)] if mesh else []))],
         cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(world)]
     deadline = time.monotonic() + RANK_TIMEOUT_S
@@ -1991,29 +2050,43 @@ def step_losses(run_dir: Path) -> list:
                                          .read_text().splitlines()) if "train/loss" in r]
 
 
-def held_run(got: dict, want: dict, lr: float, what: str) -> dict:
-    """A run (its `last` checkpoint and per-step losses) against a
-    reference run, with tests/test_torch_port_parallel_dp.py's CLI rule:
-    losses rtol 1e-4, parameters rtol 1e-3 / atol 4·lr·steps (AdamW moves a
-    parameter whose gradient is rounding noise by up to ~lr a step)."""
+def held_run(got: dict, want: dict, lr: float, what: str, steps_per_call: int = 1,
+             sgd: bool = False, stats: bool = True) -> dict:
+    """A run (its `last` checkpoint and per-call losses: one a step, or one
+    a call of `steps_per_call` steps) against a reference run, with
+    tests/test_torch_port_parallel_dp.py's CLI rule: losses rtol 1e-4,
+    parameters rtol 1e-3 / atol 4·lr·steps (AdamW moves a parameter whose
+    gradient is rounding noise by up to ~lr a step); sgd=True: parameters
+    rtol 1e-4 / atol 1e-5 (no such amplification). BatchNorm's running
+    statistics are held as the parameters are, or, with stats=False,
+    reported and not held (an AdamW run's statistics follow the
+    noise-moved weights: hold them in an SGD run)."""
     from automoe_tpu_torch.ckpt import load_checkpoint
 
     a, b = load_checkpoint(got["ckpt"]), load_checkpoint(want["ckpt"])
     la, lb = step_losses(got["runs"]), step_losses(want["runs"])
-    assert len(la) == len(lb) == a["step"] == b["step"] > 0, (what, la, lb)
+    assert (len(la) * steps_per_call == len(lb) * steps_per_call == a["step"] == b["step"]
+            > 0), (what, la, lb)
     np.testing.assert_allclose(la, lb, rtol=1e-4, err_msg=what)
-    atol = 4 * lr * a["step"]
-    worst = 0.0
+    rtol, atol = (1e-4, 1e-5) if sgd else (1e-3, 4 * lr * a["step"])
+    worst, worst_stat = 0.0, 0.0
     for k, v in b["model_state_dict"].items():
         w = a["model_state_dict"][k]
         assert w.shape == v.shape, (what, k, w.shape, v.shape)
         if v.is_floating_point():
-            np.testing.assert_allclose(w.numpy(), v.numpy(), rtol=1e-3, atol=atol,
-                                       err_msg=f"{what}: {k}")
-            worst = max(worst, float((w - v).abs().max()))
+            err = float((w - v).abs().max())
+            stat = k.endswith(("running_mean", "running_var"))
+            if stat:
+                worst_stat = max(worst_stat, err)
+            else:
+                worst = max(worst, err)
+            if stats or not stat:
+                np.testing.assert_allclose(w.numpy(), v.numpy(), rtol=rtol, atol=atol,
+                                           err_msg=f"{what}: {k}")
     loss_err = float(np.max(np.abs(np.subtract(la, lb)) / np.abs(lb)))
     return {"steps": a["step"], "step_losses": la, "max_loss_rel_err": loss_err,
-            "max_param_abs_err": worst, "param_atol": atol}
+            "max_param_abs_err": worst, "max_bn_stat_abs_err": worst_stat,
+            "bn_stats_held": stats, "param_rtol": rtol, "param_atol": atol}
 
 
 def phase_parallel(tmp: Path, frames, speeds, smi: str):
@@ -2178,6 +2251,217 @@ def phase_parallel_cards(tmp: Path, smi: str):
                      "k1_launches_per_rank": [r["launches"]["auction_solve"] for r in ranks],
                      **held_run(run(dir_, wl), run(ref_dir, ref_wl), lr, name)}
         print(f"cards, {name} ({smi}): {out[name]}", flush=True)
+    return out
+
+
+def cache_files_equal(got_dir: Path, want_dir: Path) -> dict:
+    """Two feature-cache directories: the same fingerprints (file names) and
+    arrays within rtol 1e-5 / atol 1e-6. Returns the largest difference."""
+    got = sorted(p.name for p in got_dir.glob("pooled_*.npz"))
+    want = sorted(p.name for p in want_dir.glob("pooled_*.npz"))
+    assert got == want and len(want) == 2, (got, want)  # train and val
+    worst = 0.0
+    for name in want:
+        with np.load(got_dir / name) as a, np.load(want_dir / name) as b:
+            assert sorted(a.files) == sorted(b.files), name
+            for f in b.files:
+                np.testing.assert_allclose(a[f], b[f], rtol=1e-5, atol=1e-6,
+                                           err_msg=f"{name} {f}")
+                worst = max(worst, float(np.abs(a[f] - b[f]).max()))
+    return {"files": want, "max_abs_err": worst}
+
+
+def replicated_engines(devices, calib_seed: int = 0):
+    """The default config's int8 engine (bf16, 256²) on one card and with
+    one replica on each of `devices`, on the same seeded weights and
+    calibration frames."""
+    from automoe_tpu_torch.configs import default_model_config
+    from automoe_tpu_torch.infer import InferenceEngine
+
+    cfg = default_model_config()
+    calib = np.random.default_rng(calib_seed).integers(0, 256, (2, 600, 800, 3),
+                                                       dtype=np.uint8)
+    plain = InferenceEngine(cfg, quantize=True, calib_frames=calib, device=devices[0])
+    dp = InferenceEngine(cfg, quantize=True, calib_frames=calib, devices=devices)
+    return plain, dp
+
+
+def phase_split(tmp: Path, frames, speeds, smi: str):
+    """22: the split-tensor modes and the multi-rank pieces through the
+    entry points on this card, TF32 off, each run's kernel launches and
+    peak device memory read in its own process: (a) `bdd --task detection`
+    (256x256, box cap 48, batch 32, 1 epoch of phase 21's 64 frames) with
+    --tp-min-dim 256 --model-axis 2 on 2 ranks (gloo) against --no-mesh,
+    with AdamW and with SGD; (b) the same with --spatial --model-axis 2;
+    (c) `gating
+    --cache-expert-features --device-resident --steps-per-call 2` (the
+    default config, 256x256, 8 rows a rank) on 2 ranks against one process
+    of 16 rows over the same flat epoch, dropout off in both, and `gating
+    --cache-expert-features --tp-min-dim 256 --model-axis 2` on 2 ranks,
+    its cache against that one process's; (d)
+    `automoe-serve-torch --data-parallel --quantize` (one replica a card:
+    one here) answering 4 TCP requests, K3 once a server batch, and its
+    engine against the plain one. Runs held by `held_run`."""
+    import torch
+
+    out = {"card": smi}
+    det, seq = tmp / "bdd", tmp / "seq"  # phase 21's caches
+
+    def det_argv(name, *extra):
+        return ["bdd", "--task", "detection", "--data-root", str(det), "--image-size", "256",
+                "--box-cap", "48", "--batch-size", "32", "--epochs", "1",
+                "--ckpt-root", str(tmp / name / "ck"), "--runs-root", str(tmp / name / "runs"),
+                *extra]
+
+    def run(name, wl="bdd_detection"):
+        return {"ckpt": tmp / name / "ck" / wl / "run" / "last.pt",
+                "runs": tmp / name / "runs" / f"{wl}_run"}
+
+    # each mode twice: with the CLI's AdamW (parameters held by 21's rule;
+    # BatchNorm's running statistics follow AdamW's noise-moved weights and
+    # are reported), and with SGD (every tensor held at rtol 1e-4 / atol 1e-5)
+    steps_det = 64 // 32 + 32 // 32  # train + val steps, K1 once each on each rank
+    sgd = {"SMOKE_OPTIMIZER": "sgd"}
+    ref = cli_ranks(det_argv("s_nomesh", "--no-mesh"), 1, mesh=False)[0]
+    cli_ranks(det_argv("s_nomesh_sgd", "--no-mesh"), 1, mesh=False, env=sgd)
+    assert ref["launches"]["auction_solve"] == steps_det, ref["launches"]
+    out["--no-mesh"] = {"k1_launches": ref["launches"]["auction_solve"],
+                        "step_ms_p50": ref["result"]["step_ms_p50"],
+                        "peak_mib": ref["peak_mib"]}
+    for key, extra in (("a", ("--tp-min-dim", "256", "--model-axis", "2")),
+                       ("b", ("--spatial", "--model-axis", "2"))):
+        ranks = cli_ranks(det_argv(f"s_{key}", *extra), 2)
+        cli_ranks(det_argv(f"s_{key}_sgd", *extra), 2, env=sgd)
+        for r in ranks:
+            assert r["launches"]["auction_solve"] == steps_det, r["launches"]
+        out[key] = {**backend_of(ranks), "ranks": 2, "flags": " ".join(extra),
+                    "k1_launches_per_rank": [r["launches"]["auction_solve"] for r in ranks],
+                    "step_ms_p50_per_rank": [r["result"]["step_ms_p50"] for r in ranks],
+                    "step_ms_p50_no_mesh": ref["result"]["step_ms_p50"],
+                    "peak_mib_per_rank": [r["peak_mib"] for r in ranks],
+                    "peak_mib_no_mesh": ref["peak_mib"],
+                    "note": "two ranks share one card: no scaling figure",
+                    "adamw": held_run(run(f"s_{key}"), run("s_nomesh"), 1e-4, f"22{key}",
+                                      stats=False),
+                    "sgd": held_run(run(f"s_{key}_sgd"), run("s_nomesh_sgd"), 1e-4,
+                                    f"22{key} sgd", sgd=True)}
+        print(f"phase 22{key} ({smi}): bdd {' '.join(extra)} on 2 ranks of one card, backend "
+              f"{out[key]['backend']}, staging {out[key]['staging']}: {out[key]}", flush=True)
+
+    # (c) the feature cache and the resident epoch over 2 data ranks
+    def gating_argv(name, batch):
+        return ["gating", "--data-root", str(seq), "--image-size", "256", "--batch-size",
+                str(batch), "--epochs", "1", "--cache-expert-features", "--device-resident",
+                "--steps-per-call", "2", "--feature-cache-dir", str(tmp / name / "cache"),
+                "--ckpt-root", str(tmp / name / "ck"), "--runs-root", str(tmp / name / "runs")]
+
+    one = cli_ranks(gating_argv("c_one", 16), 1, mesh=False,
+                    env={"SMOKE_NO_DROPOUT": "1", "SMOKE_FLAT_SHARDS": "2"})[0]
+    two = cli_ranks(gating_argv("c_two", 8), 2, env={"SMOKE_NO_DROPOUT": "1"})
+    out["c"] = {**backend_of(two), "ranks": 2,
+                "step_ms_p50_per_rank": [r["result"]["step_ms_p50"] for r in two],
+                "step_ms_p50_one_process": one["result"]["step_ms_p50"],
+                "peak_mib_per_rank": [r["peak_mib"] for r in two],
+                "peak_mib_one_process": one["peak_mib"],
+                "resident_exchange_s_per_rank": [r["resident_exchange_s"] for r in two],
+                "resident_reshuffle_s_one_process": one["resident_exchange_s"],
+                "cache": cache_files_equal(tmp / "c_two" / "cache", tmp / "c_one" / "cache"),
+                **held_run(run("c_two", "gating"), run("c_one", "gating"), 1e-4, "22c",
+                           steps_per_call=2)}
+    print(f"phase 22c ({smi}): gating --cache-expert-features --device-resident on 2 ranks "
+          f"of one card, backend {out['c']['backend']}, staging {out['c']['staging']}: "
+          f"{out['c']}", flush=True)
+    # the cache's pass under tensor parallelism: each expert is called on its
+    # own, the nuScenes expert's [196, 256] query table split at 256
+    tp_argv = ["gating", "--data-root", str(seq), "--image-size", "256", "--batch-size", "32",
+               "--epochs", "1", "--cache-expert-features", "--tp-min-dim", "256",
+               "--model-axis", "2", "--feature-cache-dir", str(tmp / "c_tp" / "cache"),
+               "--ckpt-root", str(tmp / "c_tp" / "ck"), "--runs-root", str(tmp / "c_tp" / "runs")]
+    tp = cli_ranks(tp_argv, 2, env={"SMOKE_NO_DROPOUT": "1"})
+    out["c tp"] = {**backend_of(tp), "ranks": 2, "flags": "--tp-min-dim 256 --model-axis 2",
+                   "val_loss_per_rank": [r["result"]["best_val_loss"] for r in tp],
+                   "cache_vs_one_process": cache_files_equal(tmp / "c_tp" / "cache",
+                                                             tmp / "c_one" / "cache")}
+    assert all(np.isfinite(out["c tp"]["val_loss_per_rank"])), out["c tp"]
+    print(f"phase 22c ({smi}): gating --cache-expert-features --tp-min-dim 256 --model-axis 2 "
+          f"on 2 ranks of one card: {out['c tp']}", flush=True)
+
+    # (d) data-parallel serving: the engine, then the server
+    plain, dp = replicated_engines([torch.device("cuda", i)
+                                    for i in range(torch.cuda.device_count())])
+    assert dp.batch_multiple == torch.cuda.device_count() == 1
+    a, b = plain.infer_batch(frames[:4], speeds[:4]), dp.infer_batch(frames[:4], speeds[:4])
+    for k in a:
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+    del plain, dp
+    n_batches, k3 = serve_four(["--data-parallel", "--quantize"], frames, speeds)
+    out["d"] = {"replicas": 1, "batch_multiple": 1, "engine_equal_to_plain": True,
+                "batches": n_batches, "k3_launches": k3}
+    print(f"phase 22d ({smi}): automoe-serve-torch --data-parallel --quantize, 1 replica, "
+          f"K3 {k3} launches in {n_batches} batches: {out['d']}", flush=True)
+    return out
+
+
+def phase_split_cards(tmp: Path, smi: str, frames, speeds):
+    """`--cards`, phase 22's modes one rank a card over NCCL (TF32 off):
+    `bdd --task detection` with --tp-min-dim 256 at data 2 x model 2 and
+    with --spatial at model 2 x data 2 (16 rows a data rank) against one
+    process of 32, with AdamW and with SGD as phase 22 holds them;
+    `--data-parallel` serving over the 4 cards, a batch of 3 frames padded
+    to 4 (K3 once on each replica), against one card."""
+    import torch
+
+    from automoe_tpu_torch.ops import stem
+    from automoe_tpu_torch.tools.synth import synth_bdd_detection
+
+    det = synth_bdd_detection(tmp / "bdd22", n_per_split={"train": 64, "val": 32}, size=256,
+                              max_boxes=20, seed=SEED)
+
+    def argv(name, batch, *extra):
+        return ["bdd", "--task", "detection", "--data-root", str(det), "--image-size", "256",
+                "--box-cap", "48", "--batch-size", str(batch), "--epochs", "1",
+                "--ckpt-root", str(tmp / name / "ck"), "--runs-root", str(tmp / name / "runs"),
+                *extra]
+
+    def run(name):
+        return {"ckpt": tmp / name / "ck" / "bdd_detection" / "run" / "last.pt",
+                "runs": tmp / name / "runs" / "bdd_detection_run"}
+
+    out = {"card": smi}
+    sgd = {"SMOKE_OPTIMIZER": "sgd"}  # as phase 22: AdamW and SGD runs
+    one = in_process_cli(argv("s_one", 32, "--no-mesh"))
+    cli_ranks(argv("s_one_sgd", 32, "--no-mesh"), 1, mesh=False, env=sgd)
+    for name, extra in (("tp data 2 x model 2", ("--tp-min-dim", "256", "--model-axis", "2")),
+                        ("sp model 2 x data 2", ("--spatial", "--model-axis", "2"))):
+        d = name.split()[0]
+        ranks = cli_ranks(argv(f"s_{d}", 16, *extra), 4)
+        cli_ranks(argv(f"s_{d}_sgd", 16, *extra), 4, env=sgd)
+        out[name] = {**backend_of(ranks, "nccl", "none"), "ranks": 4,
+                     "step_ms_p50_per_rank": [r["result"]["step_ms_p50"] for r in ranks],
+                     "step_ms_p50_one_process": one["result"]["step_ms_p50"],
+                     "peak_mib_per_rank": [r["peak_mib"] for r in ranks],
+                     "k1_launches_per_rank": [r["launches"]["auction_solve"] for r in ranks],
+                     "adamw": held_run(run(f"s_{d}"), run("s_one"), 1e-4, name, stats=False),
+                     "sgd": held_run(run(f"s_{d}_sgd"), run("s_one_sgd"), 1e-4, f"{name} sgd",
+                                     sgd=True)}
+        print(f"cards, {name} ({smi}): {out[name]}", flush=True)
+
+    plain, dp = replicated_engines([torch.device("cuda", i) for i in range(4)])
+    assert dp.batch_multiple == 4
+    stem.reset_launch_counts()
+    got = dp.infer_batch(frames[:3], speeds[:3])
+    k3 = stem.LAUNCHES["s2d_stem_pool_int8"]
+    assert k3 == 4, stem.LAUNCHES  # one a replica, the padding row's included
+    worst = 0.0
+    for i in range(3):  # each replica's rows run at B=1: one card at B=1 is the reference
+        want = plain.infer_batch(frames[i:i + 1], speeds[i:i + 1])
+        for k in want:
+            np.testing.assert_allclose(got[k][i:i + 1], want[k], rtol=1e-5, atol=1e-6,
+                                       err_msg=k)
+            worst = max(worst, float(np.abs(got[k][i:i + 1] - want[k]).max()))
+    out["serve --data-parallel"] = {"replicas": 4, "batch": 3, "padded_to": 4,
+                                    "k3_launches": k3, "max_abs_err_vs_one_card": worst}
+    print(f"cards, serve --data-parallel ({smi}): {out['serve --data-parallel']}", flush=True)
     return out
 
 
@@ -2409,6 +2693,10 @@ def main() -> int:
     print(smi, flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         parallel = phase_parallel(Path(tmp), frames, speeds, smi)
+        # 22. tensor parallel, spatial partitioning, the multi-rank cache and
+        # resident epoch, data-parallel serving (on 21's caches)
+        print(smi, flush=True)
+        split = phase_split(Path(tmp), frames, speeds, smi)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32_defaults
 
     src = "automoe_tpu_torch/csrc/stem.cu"
@@ -2445,7 +2733,9 @@ def main() -> int:
                              "automoe-serve-torch --bundle <int8 bundle> (phase 18b)":
                                  bundles["serve --bundle"]["k3_launches"],
                              "serve the expert-parallel gating checkpoint (phase 21d)":
-                                 parallel["d"]["serve"]["k3_launches"]},
+                                 parallel["d"]["serve"]["k3_launches"],
+                             "automoe-serve-torch --data-parallel --quantize, 1 replica "
+                             "(phase 22d)": split["d"]["k3_launches"]},
         "b128": {k: big[k] for k in ("ms", "ms_blocks", "wrapper_ms", "plain_ms", "unfused_ms",
                                      "bound_ms", "max_abs_err", "diff_frac",
                                      "mixed_sign_inv_max_abs_err",
@@ -2562,6 +2852,16 @@ def main() -> int:
                for k, v in parallel["a"].items() if "k1_launches" in v},
             "bdd on 2 ranks of one card, rank 0 at B=16 (phase 21b)":
                 parallel["b"]["k1_launches_per_rank"][0],
+            "bdd --tp-min-dim 256 --model-axis 2, rank 0 of 2 at B=32 (phase 22a)":
+                split["a"]["k1_launches_per_rank"][0],
+            "bdd --tp-min-dim 256 --model-axis 2, rank 1 of 2 at B=32 (phase 22a)":
+                split["a"]["k1_launches_per_rank"][1],
+            "bdd --spatial --model-axis 2, rank 0 of 2 at B=32 (phase 22b)":
+                split["b"]["k1_launches_per_rank"][0],
+            "bdd --spatial --model-axis 2, rank 1 of 2 at B=32 (phase 22b)":
+                split["b"]["k1_launches_per_rank"][1],
+            "bdd --no-mesh, the reference of 22a-b (phase 22)":
+                split["--no-mesh"]["k1_launches"],
             **{f"automoe-eval-torch {name}, max_iters=0 (phase 16)": v["launches"].get(
                 "auction_solve", 0) for name, v in evals.items()
                if name in ("bdd detection", "bdd detection --quantize", "nuscenes",
@@ -2589,6 +2889,7 @@ def main() -> int:
     print(json.dumps({"deep_policy": deep}), flush=True)
     print(json.dumps({"campaign": campaign}), flush=True)
     print(json.dumps({"parallel": parallel}), flush=True)
+    print(json.dumps({"split": split}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2597,7 +2898,7 @@ def main() -> int:
 
 
 def main_cards() -> int:
-    """`--cards`: only phase 21's comparisons with one rank a card."""
+    """`--cards`: only phase 21's and 22's comparisons with one rank a card."""
     import torch
 
     from automoe_tpu_torch.ops import auction_kernel, stem
@@ -2610,8 +2911,12 @@ def main_cards() -> int:
     auction_kernel.build()
     stem.build()
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    frames = np.random.default_rng(SEED).integers(0, 256, (4, 600, 800, 3), dtype=np.uint8)
+    speeds = np.array([0.0, 10.0, 20.0, 30.0], np.float32)
     with tempfile.TemporaryDirectory() as tmp:
         cards = phase_parallel_cards(Path(tmp), smi)
+        print(smi, flush=True)
+        cards["split"] = phase_split_cards(Path(tmp), smi, frames, speeds)
     print(json.dumps({"parallel_cards": cards}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -140,8 +140,9 @@ def test_package_imports_without_jax():
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'automoe_tpu', 'benchmarks')]\n"
         "assert not bad, bad\n"
-        "assert 'automoe_tpu_torch.evals.cli' in names and len(names) >= 92, names\n"
-        "assert {'automoe_tpu_torch.parallel.' + m for m in ('mesh', 'batchnorm', 'pp', 'ep')}"
+        "assert 'automoe_tpu_torch.evals.cli' in names and len(names) >= 95, names\n"
+        "assert {'automoe_tpu_torch.parallel.' + m for m in ('mesh', 'batchnorm', 'pp', 'ep',"
+        " 'tp', 'sp')}"
         " <= set(names), names\n"
         "assert {'automoe_tpu_torch.serving.export', 'automoe_tpu_torch.models.fused_experts'}"
         " <= set(names), names\n"
@@ -149,7 +150,8 @@ def test_package_imports_without_jax():
         " <= set(names), names\n"
         "assert {'automoe_tpu_torch.models.deep_policy'} | {'automoe_tpu_torch.tools.' + m for m in"
         " ('camera', 'campaign', 'checks', 'collect_carla', 'launch', 'preprocess_bdd100k',"
-        " 'preprocess_carla', 'preprocess_nuscenes', 'redo_preprocess', 'supervisor')}"
+        " 'preprocess_carla', 'preprocess_nuscenes', 'redo_preprocess', 'sp_memory',"
+        " 'supervisor')}"
         " <= set(names), names\n"
         "print(len(names))\n"
     )

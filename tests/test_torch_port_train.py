@@ -267,8 +267,8 @@ def test_train_cli_finetune_carla_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["nuscenes", "--spatial"], "--spatial is not ported yet"),
-    (["bdd", "--task", "segmentation", "--tp-min-dim", "1"], "--tp-min-dim is not ported yet"),
+    (["nuscenes", "--spatial"], "--spatial needs --model-axis > 1"),
+    (["bdd", "--task", "segmentation", "--tp-min-dim", "1"], "--tp-min-dim needs --model-axis > 1"),
     (["bdd", "--task", "detection", "--multihost"], "--multihost needs --coordinator"),
     (["finetune-carla", "--task", "detection", "--model-axis", "2"],
      "mesh 1x2 != 1 devices"),
@@ -281,12 +281,14 @@ def test_train_cli_finetune_carla_on_cpu(tmp_path):
     (["gating", "--parallelism", "ep"],
      r"--parallelism ep needs device count divisible by 4 experts \(have 1\)"),
     (["gating", "--parallelism", "ep", "--no-mesh"], "--parallelism ep requires a device mesh"),
-    (["gating", "--cache-expert-features", "--device-resident", "--multihost",
-      "--coordinator", "127.0.0.1:1", "--num-processes", "2", "--process-id", "0"],
-     "--cache-expert-features on more than one rank is not ported yet"),
+    # the gating guards need only the flags: a refused rank never joins the group
+    (["gating", "--cache-expert-features", "--device-resident", "--spatial", "--model-axis",
+      "2", "--multihost", "--coordinator", "127.0.0.1:1", "--num-processes", "2",
+      "--process-id", "0"],
+     "--cache-expert-features is exclusive with --spatial"),
     (["gating", "--device-resident", "--multihost", "--coordinator", "127.0.0.1:1",
       "--num-processes", "2", "--process-id", "1"],
-     "--device-resident on more than one rank is not ported yet"),
+     "--device-resident requires --cache-expert-features"),
     (["bdd", "--task", "detection", "--no-mesh", "--multihost", "--coordinator",
       "127.0.0.1:1", "--num-processes", "2", "--process-id", "0"],
      "--no-mesh runs one process with no process group"),
@@ -295,9 +297,8 @@ def test_train_cli_finetune_carla_on_cpu(tmp_path):
         "gating-feature-cache-multi-rank", "gating-device-resident-multi-rank",
         "no-mesh-multi-rank"])
 def test_train_cli_rejects_what_is_not_ported(argv, match, tmp_path, capsys):
-    """The JAX CLI's refusals, with its words, and "not ported yet" for
-    what the port does not have (TP, SP, the multi-rank feature cache and
-    resident loader); none of these reaches a process group."""
+    """The JAX CLI's refusals, with its words (the port has every mode the
+    JAX CLI has); none of these reaches a process group."""
     from automoe_tpu_torch.train.cli import main
 
     with pytest.raises(SystemExit) as e:
@@ -309,12 +310,14 @@ def test_train_cli_rejects_what_is_not_ported(argv, match, tmp_path, capsys):
     assert re.search(match, said), said
 
 
-def test_serve_cli_refuses_data_parallel(capsys):
+def test_serve_cli_refuses_data_parallel(tmp_path):
+    """The JAX server's refusal: --data-parallel needs a live model, not a
+    bundle's programs."""
     from automoe_tpu_torch.serving.cli import main
 
     with pytest.raises(SystemExit) as e:
-        main(["--data-parallel", "--device", "cpu"])
-    assert e.value.code == 2 and "--data-parallel is not ported yet" in capsys.readouterr().err
+        main(["--data-parallel", "--bundle", str(tmp_path), "--device", "cpu"])
+    assert "--data-parallel needs a live model" in str(e.value.code)
 
 
 def test_default_device_and_matcher(monkeypatch, tmp_path):

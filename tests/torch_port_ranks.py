@@ -299,3 +299,126 @@ def cli(rank, world, coordinator, out, argv):
     res = main(list(argv) + ["--multihost", "--coordinator", coordinator, "--num-processes",
                              str(world), "--process-id", str(rank)])
     return {"result": res}
+
+
+def mode_run(rank, world, coordinator, out, *specs):
+    """For each spec, a Trainer on a data x model mesh (`spec["data"]`,
+    `spec["model"]`, one mesh for all; none for a world of one) over the
+    global batches of the file `spec["batches"]`, each data rank taking
+    its rows, from the weights of the file `spec["init"]` (if any;
+    checkpoints under `spec["ckpt"]`, default <out>/ckpt), with
+    TrainConfig(**spec["config"]) (tensor parallelism and spatial
+    partitioning among its options). Each result: the eval-mode loss of
+    the first batch before training (`eval0`), the split parameters'
+    names, the per-step losses and, on rank 0, the state in the
+    single-process layout. One spec: its result; several: the list."""
+    from automoe_tpu_torch.parallel.mesh import clear_mesh
+
+    mesh = (_world(rank, world, coordinator, data=specs[0]["data"], model=specs[0]["model"])
+            if world > 1 else None)
+    results = [_mode_trainer(spec, mesh, rank) for spec in specs]
+    clear_mesh()
+    return results[0] if len(results) == 1 else results
+
+
+def _mode_trainer(spec, mesh, rank):
+    import torch
+
+    from automoe_tpu_torch.train import workloads as W
+    from automoe_tpu_torch.train.loop import TrainConfig, Trainer
+
+    D = 1 if mesh is None else mesh.shape["data"]
+    d = 0 if mesh is None else mesh.data_index
+    batches = []
+    for b in torch.load(spec["batches"], weights_only=False):
+        n = len(next(iter(b.values())))
+        batches.append({k: v[d * n // D:(d + 1) * n // D] for k, v in b.items()})
+    wl = getattr(W, spec["workload"])(**spec.get("workload_kw", {}))
+    cfg = TrainConfig(log_every=1, max_inflight=0, device="cpu", run_name="run",
+                      runs_root=spec["out"] + "/runs",
+                      ckpt_root=spec.get("ckpt", spec["out"] + "/ckpt"), **spec["config"])
+    trainer = Trainer(wl, batches, batches, cfg, mesh=mesh)
+    if spec["init"]:
+        trainer.load_variables(spec["init"])
+    res = {"eval0": float(trainer.eval_step(trainer.model,
+                                            trainer._device_batch(batches[0]))["loss"]),
+           "tp_names": sorted(trainer.tp_dims)}
+    trainer.fit()
+    res.update(trainer_result(trainer, spec) if rank == 0 else {})
+    res["state"] = {k: v.detach().clone() for k, v in trainer.whole_state_dict().items()}
+    return res
+
+
+def resident_rows(rank, world, coordinator, out, n, b, k):
+    """The sample ids a device-resident loader yields, two epochs, grouped
+    and indexed: on this rank of `world` data ranks staging its shard
+    range(rank, n, world) with b rows a batch, and in one process staging
+    the same flat epoch (the shards in rank order) with world·b rows."""
+    import numpy as np
+
+    from automoe_tpu_torch.data.device_resident import DeviceEpochLoader
+    from automoe_tpu_torch.parallel.mesh import clear_mesh
+
+    mesh = _world(rank, world, coordinator)
+    dataset = [{"id": np.int32(i)} for i in range(n)]
+    flat = [i for d in range(world) for i in range(d, n, world)]
+
+    def ids(loader):
+        got = []
+        for epoch in (0, 1):
+            loader.set_epoch(epoch)
+            for g in loader:
+                if loader.index_mode:
+                    g0 = int(g["__group_index__"])
+                    g = {"id": loader.epoch_batches["id"][g0:g0 + k]}
+                got.append(g["id"].numpy())
+        return got
+
+    res = {}
+    for index_mode in (False, True):
+        res[f"one_{index_mode}"] = ids(DeviceEpochLoader.from_dataset(
+            dataset, batch_size=world * b, group_size=k, device="cpu", indices=flat,
+            index_mode=index_mode, verbose=False))
+        res[f"rank_{index_mode}"] = ids(DeviceEpochLoader.from_dataset(
+            dataset, batch_size=b, group_size=k, mesh=mesh, index_mode=index_mode,
+            indices=range(rank, n, world), verbose=False))
+    clear_mesh()
+    return res
+
+
+def cli_logged(rank, world, coordinator, out, argv):
+    """`cli` with every optimizer step's metrics logged (log_every 1) and
+    dropout off: the port draws a data rank's dropout masks from its data
+    index, so only a dropout-free run of several ranks equals one
+    process."""
+    import dataclasses
+
+    import torch
+
+    from automoe_tpu_torch.train import cli as train_cli
+
+    torch.nn.Dropout.forward = lambda self, x: x
+
+    base = train_cli._train_cfg
+    train_cli._train_cfg = lambda args, pipeline="": dataclasses.replace(base(args, pipeline),
+                                                                         log_every=1)
+    return cli(rank, world, coordinator, out, argv)
+
+
+def cli_flat_of(rank, world, coordinator, out, argv, shards):
+    """`cli_logged` in one process whose device-resident loader stages the
+    flat epoch `shards` data ranks would assemble: each shard
+    range(d, N, shards) cut to the ranks' common count, in rank order."""
+    from automoe_tpu_torch.data import device_resident
+
+    base = device_resident.DeviceEpochLoader.from_dataset.__func__
+
+    def flat(cls, dataset, *, indices=None, batch_size, group_size=1, **kw):
+        per = batch_size // shards * max(1, group_size)
+        n = len(range(shards - 1, len(dataset), shards)) // per * per
+        idx = [i for d in range(shards) for i in list(range(d, len(dataset), shards))[:n]]
+        return base(cls, dataset, indices=idx, batch_size=batch_size, group_size=group_size,
+                    **kw)
+
+    device_resident.DeviceEpochLoader.from_dataset = classmethod(flat)
+    return cli_logged(rank, world, coordinator, out, argv)
